@@ -7,19 +7,33 @@ Phases, one line each (any failure exits non-zero and prints no result):
 1. toolchain: torch, CUDA, nvcc, the card and its power limit;
 2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
    host C++ engine (native/*.cpp), from the sources in this checkout;
-3. kernels against their plain PyTorch versions on the card, at band widths
-   B in {128, 256, 2048} and record rows R in {4096, 10240}, on random pairs
-   with indels, IUPAC codes, N and shifted bands: records and events must be
-   equal element for element; kernel and plain times are printed;
+3. kernels against their plain PyTorch versions on the card, on random pairs
+   with indels, IUPAC codes, N and shifted bands: the stripe DP and its walk
+   at band widths B in {128, 256, 2048} and record rows R in {4096, 10240}
+   (records and events equal element for element), and the checkpoint pair
+   at the shapes the long-tier path gives it, (B 128, R 65536),
+   (B 1920, R 131072) and (B 2048, R 10240) (carries, events and meta equal
+   element for element; events also equal the v2 kernels'); kernel and plain
+   times are printed;
+3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),
+   kernels only: its events must equal the v2 kernels' on the same batch;
+   both routes are timed, with their carry and record bytes;
 4. the main path: `build -c -f -j 2 --device cuda` through the CLI on the
    headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
-   with an exact roundtrip, both kernels launched, and at least half of the
-   DP cells on the device; graph quality is printed beside the reference's
-   figures for the same input (1156 blocks, core fraction 0.4875,
-   7,028,975 bp) and must stay within QUALITY_TOLERANCE of them.
+   with an exact roundtrip, the DP and walk launched, the checkpoint pair
+   not launched, and at least half of the DP cells on the device; graph
+   quality is printed beside the reference's figures for the same input
+   (1156 blocks, core fraction 0.4875, 7,028,975 bp) and must stay within
+   QUALITY_TOLERANCE of them;
+5. the long-tier path: the same build with PANGRAPH_TPU_CKPT_BYTES=32000000,
+   which sends the tiers whose per-problem records pass 32 MB (counted as
+   the reference counts them) to the checkpoint pair: exact roundtrip, all
+   four kernels launched, the same device-share and quality limits.
 
-Before the last line it prints one JSON line of kernel receipts and the
-card's name and power limit; the last line is
+Before the last line it prints one JSON line of kernel receipts (each with
+its launches on its path, its worst error against its plain version, its
+time and its plain version's, and its bound) and the card's name and power
+limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -46,6 +60,44 @@ KERNEL_SHAPES = [(128, 4096, 256), (128, 10240, 256), (256, 4096, 128), (256, 10
 PLAIN_WALK_PROBLEMS = 16
 WALK_K = 256
 TIMED_REPS = 5
+# (B, R, problems): the shapes the long-tier path (phase 5) gives the pair:
+# its 65,536 tier at B 128, its 131,072 tier at its widest band, and its
+# 10,240 tier at the kernel's widest band; R is the tier, the problems' rows
+# are drawn from the tier's range (R/2 to R)
+CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8)]
+PLAIN_CKPT_WALK_PROBLEMS = 4
+MBP_SHAPE = (128, 2_097_152, 32)
+MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
+CKPT_OVERRIDE_BYTES = "32000000"
+# The card's peaks for bound_ms: H100 SXM HBM at 3.35 TB/s (NVIDIA's data
+# sheet), and the int32 throughput, 132 SMs x 64 INT32 lanes x 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Integer operations per DP cell that the recurrence itself needs, counted
+# from ops/stripe_v2.py:_RowStep at one per add, max, compare, pick, and, or
+# or shift (each issues on the INT32 pipe). Address arithmetic, loads, the
+# lane scan's shuffles and the barriers belong to the kernel's design and
+# are not counted.
+DP_CARRY_OPS = {  # what the carries (H, query gap, MATCH run) need
+    "in band: q = q0 + i, 0 <= q <= qlen": 4,
+    "score: either code N (2 compares, or), codes compatible (and, compare), 2 picks": 7,
+    "diagonal: q >= 1 (compare, and), H + score": 3,
+    "query gap: open (subtract; free at q = qlen: compare, pick), extend (compare, pick)": 5,
+    "NQ = max(M, QG); P = NQ - gap open, out of band NO_ALIGN": 3,
+    "horizontal gap: one prefix-max step": 1,
+    "H and origin: 2 compares, 4 picks": 6,
+    "MATCH run: test, add, pick": 3,
+}
+DP_RECORD_OPS = {  # what a record adds
+    "query-gap extend flag: and, or": 2,
+    "ref-gap extend flag: max, subtract, compare, or": 4,
+    "boundary flag: compare, or": 2,
+    "record: cap the run, shift, or": 3,
+}
+CKPT_DP_OPS_PER_CELL = sum(DP_CARRY_OPS.values())  # the checkpoint DP: carries only
+DP_OPS_PER_CELL = CKPT_DP_OPS_PER_CELL + sum(DP_RECORD_OPS.values())  # the DP, the walk's re-derive
+# per walk move, from ops/stripe_v2.py:_Walker.move (csrc/walk_step.cuh)
+WALK_OPS_PER_MOVE = 35
 
 
 def say(phase: str, **kv) -> None:
@@ -95,22 +147,25 @@ def phase_build() -> None:
                 say("ptxas", source=src, info=repr(line.strip()))
 
 
-def _mutate(ref, rng):
-    """A related query: ~1% substitutions (some IUPAC codes and N) and a
-    few indels of 1-8 bp."""
+def _mutate(ref, rng, indel_every: int = 400, balanced: bool = False):
+    """A related query: ~1% substitutions (some IUPAC codes and N) and an
+    indel of 1-8 bp every `indel_every` bp on average; with `balanced`,
+    deletions and insertions alternate at equal lengths, so that the pair
+    stays near its diagonal over Mbp."""
     q = ref.copy()
     n = len(q)
     idx = rng.choice(n, n // 100, replace=False)
     q[idx] = ACGT[rng.integers(0, 4, len(idx))]
     amb = rng.choice(n, max(1, n // 2000), replace=False)
     q[amb] = IUPAC_EXTRA[rng.integers(0, len(IUPAC_EXTRA), len(amb))]
-    parts, prev = [], 0
-    for p in np.sort(rng.choice(np.arange(1, n - 50), max(1, n // 400), replace=False)):
+    parts, prev, L = [], 0, 1
+    for t, p in enumerate(np.sort(rng.choice(np.arange(1, n - 50), max(1, n // indel_every), replace=False))):
         if p < prev:
             continue
         parts.append(q[prev:p])
-        L = int(rng.integers(1, 9))
-        if rng.random() < 0.5:
+        if not (balanced and t % 2):
+            L = int(rng.integers(1, 9))
+        if (t % 2 == 0) if balanced else rng.random() < 0.5:
             prev = p + L  # deletion
         else:
             parts.append(ACGT[rng.integers(0, 4, L)])  # insertion
@@ -119,7 +174,7 @@ def _mutate(ref, rng):
     return np.concatenate(parts)
 
 
-def kernel_inputs(B: int, R: int, m: int, seed: int):
+def kernel_inputs(B: int, R: int, m: int, seed: int, **mutation):
     rng = np.random.default_rng(seed)
     W = (B - 2) // 2
     refs, qrys, mss = [], [], []
@@ -127,7 +182,7 @@ def kernel_inputs(B: int, R: int, m: int, seed: int):
         n = int(rng.integers(R // 2, R - 64))
         r = ACGT[rng.integers(0, 4, n)]
         r[rng.choice(n, max(1, n // 3000), replace=False)] = ord("N")
-        q = _mutate(r, rng)[: R - 2]
+        q = _mutate(r, rng, **mutation)[: R - 2]
         refs.append(r)
         qrys.append(q)
         # shifted bands centred on the pair's mean drift, off by up to W/4
@@ -166,6 +221,56 @@ def _host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the integer operations over its int32 throughput."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _dp_work(rlen, qlen, B: int) -> tuple:
+    """(input bytes, cells) of a DP over these problems: each sequence byte
+    and the four int32 problem vectors read once."""
+    return int(rlen.sum()) + int(qlen.sum()) + 16 * len(rlen) + 256, int(rlen.sum()) * B
+
+
+def _walk_bound(nev, K: int, extra_bytes: int = 0, extra_ops: int = 0) -> dict:
+    """A walk's bound, counting at least one move per event: per event one
+    record read (2 bytes) and its row and word written (8 bytes), per
+    problem its four int32 inputs read and n_events and meta written."""
+    events = int(np.minimum(nev, K).sum())
+    return _bound(events * 10 + len(nev) * 36 + extra_bytes, events * WALK_OPS_PER_MOVE + extra_ops)
+
+
+def _walk_err(out_k, out_p, n: int, K: int) -> int:
+    """Summed absolute difference of the first n problems' events, counts
+    and meta (0 when they agree)."""
+    rows_k, words_k, nev_k, meta_k = (t[:n].cpu().numpy() for t in out_k)
+    rows_p, words_p, nev_p, meta_p = (t[:n].cpu().numpy() for t in out_p)
+    err = int(np.abs(nev_k - nev_p).max()) + int(np.abs(meta_k - meta_p).max())
+    for s in range(n):
+        e = min(int(nev_p[s]), K)
+        err += int(np.abs(rows_k[s, :e] - rows_p[s, :e]).sum() + np.abs(words_k[s, :e] - words_p[s, :e]).sum())
+    return err
+
+
+def _events_differ(out_a, out_b, K: int) -> tuple:
+    """(problems whose events or meta[0,1,3] differ, problems whose meta[2]
+    alone differs) between two walks of the same batch."""
+    a = [t.cpu().numpy() for t in out_a]
+    b = [t.cpu().numpy() for t in out_b]
+    bad, bnd = [], []
+    for s in range(len(a[2])):
+        e = min(int(a[2][s]), K)
+        same = (a[2][s] == b[2][s] and np.array_equal(a[0][s, :e], b[0][s, :e])
+                and np.array_equal(a[1][s, :e], b[1][s, :e]) and np.array_equal(a[3][s, [0, 1, 3]], b[3][s, [0, 1, 3]]))
+        if not same:
+            bad.append(s)
+        elif a[3][s, 2] != b[3][s, 2]:
+            bnd.append(s)
+    return bad, bnd
+
+
 def phase_kernels(torch) -> dict:
     from pangraph_tpu_torch.ops import stripe_v2 as sv
 
@@ -183,7 +288,8 @@ def phase_kernels(torch) -> dict:
         rows_live = torch.arange(R, device=dev)[None, :] < rlen[:, None].long()
         diff = (rec.int() - rec_plain.int()).abs()[rows_live]
         dp_err = int(diff.max()) if diff.numel() else 0
-        cells = int(rlen.sum()) * B
+        in_bytes, cells = _dp_work(arrays[2], arrays[3], B)
+        dp_bound = _bound(in_bytes + 2 * cells, DP_OPS_PER_CELL * cells)
 
         out = sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K)
         n = min(PLAIN_WALK_PROBLEMS, m)
@@ -191,28 +297,161 @@ def phase_kernels(torch) -> dict:
         walk_full_ms = _event_ms(torch, lambda: sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K), TIMED_REPS)
         walk_ms = _event_ms(torch, lambda: sv.walk(*sub, seg, WALK_K), TIMED_REPS)
         plain_walk_ms, out_plain = _host_ms(torch, lambda: sv.walk_plain(*sub, seg, WALK_K))
-        rows_k, words_k, nev_k, meta_k = (t[:n].cpu().numpy() for t in out)
-        rows_p, words_p, nev_p, meta_p = (t.cpu().numpy() for t in out_plain)
-        walk_err = int(np.abs(nev_k - nev_p).max()) + int(np.abs(meta_k - meta_p).max())
-        for s in range(n):
-            e = min(int(nev_p[s]), WALK_K)
-            walk_err += int(np.abs(rows_k[s, :e] - rows_p[s, :e]).sum() + np.abs(words_k[s, :e] - words_p[s, :e]).sum())
+        walk_err = _walk_err(out, out_plain, n, WALK_K)
+        nev_k = out[2].cpu().numpy()
+        walk_bound = _walk_bound(nev_k[:n], WALK_K)
         # every pair whose events decode must decode to its exact edit
         decoded, exact = _decode_all(sv, arrays, out)
 
         worst["stripe_dp"] = max(worst["stripe_dp"], dp_err)
         worst["walk"] = max(worst["walk"], walk_err)
-        times[(B, R)] = (dp_ms, plain_dp_ms, walk_ms, plain_walk_ms)
+        times[(B, R)] = {"stripe_dp": (dp_ms, plain_dp_ms, dp_bound), "walk": (walk_ms, plain_walk_ms, walk_bound)}
         say("kernels", B=B, R=R, problems=m, cells=cells, dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1),
-            dp_gcells_per_s=round(cells / dp_ms / 1e6, 2), dp_max_abs_err=dp_err,
+            dp_gcells_per_s=round(cells / dp_ms / 1e6, 2), dp_bound_ms=round(dp_bound["bound_ms"], 4),
+            dp_bound_by=dp_bound["bound_by"], dp_max_abs_err=dp_err,
             walk_all_ms=round(walk_full_ms, 4), walk_problems=n, walk_ms=round(walk_ms, 4),
-            plain_walk_ms=round(plain_walk_ms, 2),
+            plain_walk_ms=round(plain_walk_ms, 2), walk_bound_ms=walk_bound["bound_ms"],
             walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact)
         if dp_err or walk_err or exact != decoded:
             raise AssertionError(f"kernel disagrees with its plain version at B={B} R={R}")
         del rec, rec_plain
         torch.cuda.empty_cache()
     return {"worst": worst, "times": times}
+
+
+def _rederived_windows(out, rlen, WV: int, K: int) -> int:
+    """A lower bound on the windows a checkpoint walk re-derives: each
+    problem's top window, and every window in which the walk read a record
+    to emit an event (a deletion event at row x reads row x, an insertion
+    event at row x reads row x + 1). Windows a walk re-derives without
+    emitting there are not counted."""
+    rows, words, nev = (t.cpu().numpy() for t in out[:3])
+    total = 0
+    for s in range(len(rlen)):
+        if rlen[s] <= 0:
+            continue
+        x = rows[s, : min(int(nev[s]), K)].astype(np.int64)
+        op = words[s, : len(x)] & 3
+        read = np.where(op == 2, x, x + 1)[(op != 2) | (x >= 1)]  # a deletion flushed at row 0 reads nothing
+        total += len(set(((read - 1) // WV).tolist()) | {(int(rlen[s]) - 1) // WV})
+    return total
+
+
+def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: int) -> tuple:
+    """Bounds of the checkpoint DP (over all problems) and walk (over the
+    first `problems`): the DP's cells and its live carries written once; the
+    walk's re-derived windows (their carries and sequence bytes read once,
+    their cells recomputed) on top of its events."""
+    from pangraph_tpu_torch.ops.stripe_v2 import ckpt_layout
+
+    WV = ckpt_layout(B)
+    rlen, qlen = arrays[2], arrays[3]
+    in_bytes, cells = _dp_work(rlen, qlen, B)
+    live = int((np.minimum(rlen // WV, n_windows - 1) + 1).sum())
+    dp = _bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells)
+    sub = [t[:problems] for t in out]
+    win = _rederived_windows(sub, rlen[:problems], WV, K)
+    walk = _walk_bound(sub[2].cpu().numpy(), K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
+                       extra_ops=win * WV * B * DP_OPS_PER_CELL)
+    return dp, walk, win
+
+
+def phase_ckpt_kernels(torch) -> dict:
+    """The checkpoint pair against its plain versions, and its events
+    against the v2 kernels'."""
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+
+    dev = torch.device("cuda", 0)
+    worst = {"stripe_dp_ckpt": 0, "walk_ckpt": 0}
+    times = {}
+    for shape_i, (B, R, m) in enumerate(CKPT_SHAPES):
+        arrays = kernel_inputs(B, R, m, seed=200 + shape_i)
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        WV = sv.ckpt_layout(B)
+        n_windows = sv.ckpt_windows(R, B)
+
+        ck = sv.stripe_dp_ckpt(*t, B, R)
+        dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), TIMED_REPS)
+        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*t, B, R))
+        live = torch.arange(n_windows, device=dev)[None, :] * WV <= t[2][:, None].long()
+        diff = (ck - ck_plain).abs()[live]
+        dp_err = int(diff.max()) if diff.numel() else 0
+
+        out = sv.walk_ckpt(ck, *t, WALK_K)
+        n = min(PLAIN_CKPT_WALK_PROBLEMS, m)
+        sub = [x[:n].contiguous() for x in [ck] + t]
+        walk_all_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, WALK_K), TIMED_REPS)
+        walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(*sub, WALK_K), TIMED_REPS)
+        plain_walk_ms, out_plain = _host_ms(
+            torch, lambda: sv.walk_ckpt_plain(ck_plain[:n].contiguous(), *sub[1:], WALK_K))
+        walk_err = _walk_err(out, out_plain, n, WALK_K)
+
+        v2 = sv.walk(sv.stripe_dp(*t, B), *t[2:], sv.walk_segment(R, B), WALK_K)
+        bad, bnd = _events_differ(out, v2, WALK_K)
+        decoded, exact = _decode_all(sv, arrays, out)
+        dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, WALK_K, n)
+
+        worst["stripe_dp_ckpt"] = max(worst["stripe_dp_ckpt"], dp_err)
+        worst["walk_ckpt"] = max(worst["walk_ckpt"], walk_err)
+        times[(B, R)] = {"stripe_dp_ckpt": (dp_ms, plain_dp_ms, dp_bound),
+                         "walk_ckpt": (walk_ms, plain_walk_ms, walk_bound)}
+        cells = int(arrays[2].sum()) * B
+        say("ckpt_kernels", B=B, R=R, problems=m, WV=WV, windows=n_windows, cells=cells,
+            dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1), dp_gcells_per_s=round(cells / dp_ms / 1e6, 2),
+            dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"], dp_max_abs_err=dp_err,
+            walk_all_ms=round(walk_all_ms, 3), walk_problems=n, walk_ms=round(walk_ms, 3),
+            plain_walk_ms=round(plain_walk_ms, 1), walk_rederived_windows_at_least=win,
+            walk_bound_ms=round(walk_bound["bound_ms"], 4), walk_bound_by=walk_bound["bound_by"],
+            walk_max_abs_err=walk_err, max_events=int(out[2].max()), events_differ_from_v2=bad,
+            meta2_differs_from_v2=bnd, decoded=decoded, exact=exact)
+        if dp_err or walk_err or bad or exact != decoded:
+            raise AssertionError(f"checkpoint kernel disagrees at B={B} R={R}")
+        del ck, ck_plain, v2
+        torch.cuda.empty_cache()
+    return {"worst": worst, "times": times}
+
+
+def phase_mbp(torch) -> dict:
+    """Kernels only, at Mbp scale: the checkpoint route's events against the
+    v2 route's (whose kernels phase 3 holds against plain), both timed."""
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+
+    dev = torch.device("cuda", 0)
+    B, R, m = MBP_SHAPE
+    t0 = time.time()
+    arrays = kernel_inputs(B, R, m, seed=300, indel_every=4000, balanced=True)
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    setup_s = time.time() - t0
+    n_windows = sv.ckpt_windows(R, B)
+
+    ck = sv.stripe_dp_ckpt(*t, B, R)
+    out = sv.walk_ckpt(ck, *t, MBP_K)
+    ck_dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), 1)
+    ck_walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, MBP_K), 1)
+    carry_bytes = ck.numel() * 4
+    del ck
+    rec = sv.stripe_dp(*t, B)
+    seg = sv.walk_segment(R, B)
+    v2 = sv.walk(rec, *t[2:], seg, MBP_K)
+    v2_dp_ms = _event_ms(torch, lambda: sv.stripe_dp(*t, B), 1)
+    v2_walk_ms = _event_ms(torch, lambda: sv.walk(rec, *t[2:], seg, MBP_K), 1)
+    record_bytes = rec.numel() * 2
+    del rec
+    torch.cuda.empty_cache()
+    bad, bnd = _events_differ(out, v2, MBP_K)
+    dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, MBP_K, m)
+    cells = int(arrays[2].sum()) * B
+    say("mbp", B=B, R=R, problems=m, windows=n_windows, setup_s=round(setup_s, 1), cells=cells,
+        max_events=int(out[2].max()), overflow=int((out[2] > MBP_K).sum()),
+        ckpt_dp_ms=round(ck_dp_ms, 3), ckpt_walk_ms=round(ck_walk_ms, 3),
+        ckpt_dp_bound_ms=round(dp_bound["bound_ms"], 3), ckpt_walk_bound_ms=round(walk_bound["bound_ms"], 3),
+        walk_rederived_windows_at_least=win, v2_dp_ms=round(v2_dp_ms, 3), v2_walk_ms=round(v2_walk_ms, 3),
+        carry_bytes=carry_bytes, record_bytes=record_bytes, events_differ_from_v2=bad, meta2_differs_from_v2=bnd)
+    if bad:
+        raise AssertionError(f"checkpoint events differ from v2 events at Mbp scale, problems {bad}")
+    if int((out[2] > MBP_K).sum()):
+        raise AssertionError("event overflow at Mbp scale: raise MBP_K")
+    return {"ckpt_dp_ms": ck_dp_ms, "ckpt_walk_ms": ck_walk_ms, "v2_dp_ms": v2_dp_ms, "v2_walk_ms": v2_walk_ms}
 
 
 def _decode_all(sv, arrays, out) -> tuple:
@@ -228,47 +467,102 @@ def _decode_all(sv, arrays, out) -> tuple:
     return decoded, exact
 
 
-def phase_main_path(torch) -> dict:
+def headline_fasta(path: str) -> int:
+    """Write the headline pangenome to `path`; returns its bp."""
+    from pangraph_tpu_torch.io.fasta import write_fasta
+    from pangraph_tpu_torch.utils.synth import make_accessory_pangenome
+
+    recs = make_accessory_pangenome(n_genomes=10, genome_len=4_600_000, seed=13)
+    write_fasta(path, recs)
+    return sum(len(r.seq) for r in recs)
+
+
+def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
+    """`build -c -f -j 2 --device cuda` through the CLI on `fa`, with `env`
+    set around it. The launch counts are set to 0 just before and read just
+    after; want[name] is True for a kernel that must launch, False for one
+    that must not. Prints the aligner's receipts, with the jobs, cells and
+    band range per length tier and kernel route (engine_report()'s
+    device_tiers)."""
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
-    from pangraph_tpu_torch.io.fasta import write_fasta
     from pangraph_tpu_torch.ops import stripe_v2 as sv
     from pangraph_tpu_torch.ops.batch_align import BatchAligner
-    from pangraph_tpu_torch.utils.synth import make_accessory_pangenome
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        recs = make_accessory_pangenome(n_genomes=10, genome_len=4_600_000, seed=13)
-        fa = os.path.join(tmp, "headline.fa")
-        write_fasta(fa, recs)
-        input_bp = sum(len(r.seq) for r in recs)
-        del recs
-        setup_s = time.time() - t0
-        out = os.path.join(tmp, "graph.json")
-        BatchAligner.reset_engine_stats()
-        sv.reset_launches()
-        t0 = time.time()
-        rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
-        wall = time.time() - t0
-        launches = dict(sv.LAUNCHES)
-        report = BatchAligner.engine_report()
-        if rc != 0:
-            raise AssertionError(f"build exited {rc} (with -f a roundtrip mismatch exits non-zero)")
-        quality = graph_quality(Pangraph.from_file(out))
-    say("main_path", input_bp=input_bp, setup_s=round(setup_s, 1), wall_s=round(wall, 3), roundtrip="exact",
-        launches=json.dumps(launches))
-    say("quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
-    say("engines", report=json.dumps(report))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "graph.json")
+            BatchAligner.reset_engine_stats()
+            sv.reset_launches()
+            t0 = time.time()
+            rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
+            wall = time.time() - t0
+            launches = dict(sv.LAUNCHES)
+            report = BatchAligner.engine_report()
+            if rc != 0:
+                raise AssertionError(f"build exited {rc} (with -f a roundtrip mismatch exits non-zero)")
+            quality = graph_quality(Pangraph.from_file(out))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
+    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
+    say(f"{phase}.engines", report=json.dumps(report))
+    for name, must in want.items():
+        if must and launches[name] <= 0:
+            raise AssertionError(f"{phase}: kernel {name} was never launched: {launches}")
+        if not must and launches[name] != 0:
+            raise AssertionError(f"{phase}: kernel {name} was launched off its path: {launches}")
     if (report["device_cells_frac"] or 0) < 0.5:
-        raise AssertionError(f"device_cells_frac {report['device_cells_frac']} < 0.5")
-    for k, want in REFERENCE_QUALITY.items():
-        off = abs(quality[k] - want) / (1 if k == "core_fraction" else want)
+        raise AssertionError(f"{phase}: device_cells_frac {report['device_cells_frac']} < 0.5")
+    for k, want_q in REFERENCE_QUALITY.items():
+        off = abs(quality[k] - want_q) / (1 if k == "core_fraction" else want_q)
         if off > QUALITY_TOLERANCE[k]:
-            raise AssertionError(f"graph quality {k}={quality[k]} is off the reference's {want} by {off:.4g}")
+            raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
     return {"launches": launches, "report": report, "quality": quality, "wall_s": wall}
+
+
+KERNEL_FILES = {
+    "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
+    "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
+    "stripe_dp_ckpt": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:332"),
+    "walk_ckpt": ("pangraph_tpu_torch/csrc/walk_ckpt.cu", "pangraph_tpu/ops/stripe_v2.py:647"),
+}
+
+
+def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict) -> dict:
+    """One entry per kernel: launches on its own path (the DP and walk on
+    the headline's default path, the checkpoint pair on the long-tier path),
+    worst error against its plain version over every phase-3 shape, and its
+    times and bound at one phase-3 shape."""
+    rows = []
+    for name, (shape, phase, path) in {
+        "stripe_dp": ((128, 10240), kern, main_path),
+        "walk": ((128, 10240), kern, main_path),
+        "stripe_dp_ckpt": ((128, 65536), ckpt, long_tier),
+        "walk_ckpt": ((128, 65536), ckpt, long_tier),
+    }.items():
+        ms, plain_ms, bound = phase["times"][shape][name]
+        source, replaces = KERNEL_FILES[name]
+        problems = {(b, r): n for b, r, n in KERNEL_SHAPES + CKPT_SHAPES}[shape]
+        if name == "walk":
+            problems = min(problems, PLAIN_WALK_PROBLEMS)
+        elif name == "walk_ckpt":
+            problems = min(problems, PLAIN_CKPT_WALK_PROBLEMS)
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path["launches"][name], "max_abs_err": phase["worst"][name],
+            "ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+            "shape": f"B={shape[0]} R={shape[1]} problems={problems}",
+        })
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -285,32 +579,29 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
+    v2 = {"stripe_dp": True, "walk": True}
     try:
         info = phase_toolchain(torch)
         phase_build()
         kern = phase_kernels(torch)
-        main_path = phase_main_path(torch)
+        ckpt = phase_ckpt_kernels(torch)
+        phase_mbp(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = os.path.join(tmp, "headline.fa")
+            t0 = time.time()
+            say("headline", input_bp=headline_fasta(fa), setup_s=round(time.time() - t0, 1))
+            main_path = phase_build_path(torch, "main_path", fa, {},
+                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False})
+            long_tier = phase_build_path(torch, "long_tier", fa, {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
+                                         {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    B, R = 128, 10240
-    dp_ms, plain_dp_ms, walk_ms, plain_walk_ms = kern["times"][(B, R)]
-    problems = {(b, r): n for b, r, n in KERNEL_SHAPES}[(B, R)]
-    receipts = {"kernels": [
-        {"name": "stripe_dp", "route": "cuda", "source": "pangraph_tpu_torch/csrc/stripe_dp.cu",
-         "replaces": "pangraph_tpu/ops/stripe_v2.py:201", "launches": main_path["launches"]["stripe_dp"],
-         "max_abs_err": kern["worst"]["stripe_dp"], "ms": round(dp_ms, 4), "plain_ms": round(plain_dp_ms, 2),
-         "shape": f"B={B} R={R} problems={problems}"},
-        {"name": "walk", "route": "cuda", "source": "pangraph_tpu_torch/csrc/walk.cu",
-         "replaces": "pangraph_tpu/ops/stripe_v2.py:452", "launches": main_path["launches"]["walk"],
-         "max_abs_err": kern["worst"]["walk"], "ms": round(walk_ms, 4), "plain_ms": round(plain_walk_ms, 2),
-         "shape": f"B={B} R={R} problems={PLAIN_WALK_PROBLEMS}"},
-    ]}
     print(info["smi"])
-    print(json.dumps(receipts))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

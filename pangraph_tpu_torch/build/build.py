@@ -131,10 +131,22 @@ def build(records, args: BuildArgs, aligner=None, find_matches_override=None, pr
     """records: list of FastaRecord. Returns the merged pangenome graph.
 
     `aligner` is used as given (ops.batch_align.BatchAligner, built by the
-    caller for its device); None selects the numpy reference aligner."""
+    caller for its device). None builds one for the card, which raises where
+    there is no CUDA device: to run on the CPU, pass an aligner built for it
+    (BatchAligner(..., device="cpu"), or device=None for the host engine).
+    "numpy" aligns every job on its own with the numpy reference aligner,
+    without batching, as the reference does where no C++ toolchain builds
+    the host engine."""
     names = [r.seq_name for r in records]
     if len(set(names)) != len(names):
         raise ValueError("Duplicate sequence names in input")
+
+    if aligner is None:
+        from pangraph_tpu_torch.ops.batch_align import BatchAligner
+
+        aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device="cuda")
+    elif aligner == "numpy":
+        aligner = None  # the merges' and the mapper's own numpy paths
 
     graphs = {r.index: Pangraph.singleton(r.seq_name, r.seq, r.index, args.circular, desc=r.desc) for r in records}
 

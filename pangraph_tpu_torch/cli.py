@@ -124,7 +124,7 @@ def _cmd_build(args) -> int:
         ),
     )
     if args.no_tpu and native.get_lib() is None:
-        aligner = None  # no C++ toolchain: the numpy aligner, as the reference does
+        aligner = "numpy"  # no C++ toolchain: the numpy aligner, as the reference does
     else:
         aligner = BatchAligner(
             build_args.banded_params, build_args.extra_band_width, build_args.max_alignment_attempts,

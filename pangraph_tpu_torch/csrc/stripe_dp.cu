@@ -1,266 +1,95 @@
 // Banded stripe DP for Hopper (sm_90a): one thread block per problem.
 //
-// Replaces the Pallas kernel pangraph_tpu/ops/stripe_v2.py:_dp_kernel (its
-// row recurrence _chunk_compute and lane scan _prefix_max_exclusive). The
-// plain PyTorch version, pangraph_tpu_torch/ops/stripe_v2.py:stripe_dp_plain,
-// computes the same records and is what this kernel is held against.
+// Replaces two Pallas kernels of pangraph_tpu/ops/stripe_v2.py: _dp_kernel,
+// which writes the records, and (in checkpoint mode) _dp_ckpt_kernel, which
+// keeps only the carry at each window start. Both run the row recurrence of
+// csrc/stripe_row.cuh (the Pallas _chunk_compute and _prefix_max_exclusive).
+// The plain PyTorch versions, pangraph_tpu_torch/ops/stripe_v2.py:
+// stripe_dp_plain and stripe_dp_ckpt_plain, compute the same records and
+// carries and are what this kernel is held against.
 //
-// Layout. Records are written in band coordinates, rec[p][i-1][k] for row i
-// (1-based reference position) and band lane k in [0, B), query position
-// q = i + k - ms - W. The diagonal predecessor of a cell is the same lane of
-// the previous row, the vertical one is lane k+1 of the previous row, and
-// the horizontal gap is an exclusive prefix-max over the row's lanes. The
+// Records are written in band coordinates, rec[p][i-1][k] for row i and band
+// lane k (see stripe_row.cuh). In checkpoint mode nothing per row leaves the
+// SM: after row 0 and after every row i with i % WV == 0 the block writes
+// row i's carry (H, query gap, uncapped MATCH run; [3][B] int32) to
+// ckpt[p][i / WV], which is what the walk re-derives a window from. The
 // Pallas kernel's 128-row window chunks, groups of 16 problems and group row
-// bound exist for VMEM and the (8,128) tile and are not carried over; only
-// their one visible effect is kept: on rows 1, 129, 257, ... lane 0 has no
-// diagonal predecessor.
+// bound exist for VMEM and the (8,128) tile and are not carried over.
 //
 // What bounds it: the serial chain of rows. Row i needs all of row i-1, and
 // a row is some hundred dependent integer operations, a prefix-max across
-// the band and two block barriers. Its bytes (one int16 record per cell,
-// one query byte per lane, coalesced) are far below the card's bandwidth.
-// What the design does about it: the band lanes spread over the block's
-// threads (one lane each up to B = 1024, two at B = 2048); each lane keeps
-// its H and run carries in registers, and only the two values it needs from
-// lane k+1 (H and the query gap) go through a double-buffered shared row, so
-// a row costs two barriers; the prefix-max is a warp-shuffle scan plus one
-// pass over the per-warp totals in shared memory. One block per problem
-// lets many problems share an SM (sixteen 128-thread blocks at B = 128),
-// which hides each problem's row latency behind the others'.
+// the band and two block barriers. Its bytes (one int16 record per cell, or
+// none in checkpoint mode, one query byte per lane, coalesced) are far below
+// the card's bandwidth. What the design does about it: see stripe_row.cuh;
+// one block per problem lets many problems share an SM (sixteen 128-thread
+// blocks at B = 128), which hides each problem's row latency behind the
+// others'.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stripe_row.cuh"
+
 namespace {
 
-constexpr int MATCH = 1;
-constexpr int REF_GAP_MATRIX = 2;
-constexpr int QRY_GAP_MATRIX = 4;
-constexpr int REF_GAP_EXTEND = 8;
-constexpr int QRY_GAP_EXTEND = 16;
-constexpr int BOUNDARY = 32;
+using namespace stripe;
 
-constexpr int NO_ALIGN = -1000000000;
-constexpr int SCORE_MATCH = 3;
-constexpr int PENALTY_MISMATCH = 1;
-constexpr int GAP_OPEN = 6;
-constexpr int RUN_CAP = 1023;
-constexpr int DP_C = 128;  // row period of the reference's window chunks
-constexpr unsigned FULL = 0xffffffffu;
-
-size_t smem_bytes(int B) {
-    return (size_t)(4 * (B + 1) + 5 * 32) * sizeof(int) + 256;
-}
-
-template <int LPT>
+template <int LPT, bool CKPT>
 __global__ void __launch_bounds__(1024) stripe_dp_kernel(
     const uint8_t* __restrict__ ref, long long ref_stride,
     const uint8_t* __restrict__ qry, long long qry_stride,
     const int* __restrict__ rlen_a, const int* __restrict__ qlen_a,
     const int* __restrict__ ms_a, const int* __restrict__ W_a,
     const uint8_t* __restrict__ iupac_g,
-    uint16_t* __restrict__ rec, long long rec_rows, int B)
+    uint16_t* __restrict__ rec, long long rec_rows,
+    int* __restrict__ ckpt, int n_windows, int WV, int B)
 {
     extern __shared__ int smem[];
-    int* sH = smem;                // [2][B + 1] H of the previous / current row
-    int* sQ = sH + 2 * (B + 1);    // [2][B + 1] query-gap of the previous / current row
-    int* sTot = sQ + 2 * (B + 1);  // [32] per-warp inclusive max of P
-    int* sTot30 = sTot + 32;       // [32] inclusive max at warp lane 30
-    int* sNQ = sTot30 + 32;        // [32] NQ of each warp's last band lane
-    int* sIM = sNQ + 32;           // [32] in-matrix flag of each warp's last band lane
-    int* sP0 = sIM + 32;           // [32] P of the first lane of each warp's last thread
-    uint8_t* sIupac = reinterpret_cast<uint8_t*>(sP0 + 32);  // [256]
-
+    const RowSmem s = row_smem(smem, B);
     const int p = blockIdx.x;
-    const int t = threadIdx.x;
-    const int T = blockDim.x;
-    const int lane_id = t & 31;
-    const int warp = t >> 5;
-    const int rlen = rlen_a[p];
-    const int qlen = qlen_a[p];
-    const int off = ms_a[p] + W_a[p];
-    const uint8_t* refp = ref + (long long)p * ref_stride;
-    const uint8_t* qryp = qry + (long long)p * qry_stride;
-    uint16_t* recp = rec + (long long)p * rec_rows * B;
-    const int k0 = t * LPT;
+    const Problem P = problem(p, ref, ref_stride, qry, qry_stride, rlen_a, qlen_a, ms_a, W_a);
+    uint16_t* recp = CKPT ? nullptr : rec + (long long)p * rec_rows * B;
+    int* ckp = CKPT ? ckpt + (long long)p * n_windows * 3 * B : nullptr;
 
-    for (int x = t; x < 256; x += T) sIupac[x] = iupac_g[x];
-    // row 0: free leading insertion wherever 0 <= q <= qlen
-    for (int x = t; x <= B; x += T) {
-        const int q = x - off;
-        sH[x] = (q >= 0 && q <= qlen) ? 0 : NO_ALIGN;
-        sQ[x] = NO_ALIGN;
-        sH[B + 1 + x] = NO_ALIGN;
-        sQ[B + 1 + x] = NO_ALIGN;
-    }
+    load_iupac(s, iupac_g);
     int Hc[LPT], runc[LPT];
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) {
-        const int q = k0 + j - off;
-        Hc[j] = (q >= 0 && q <= qlen) ? 0 : NO_ALIGN;
-        runc[j] = 0;
+    start_row<LPT>(s, P, 0, nullptr, B, Hc, runc);
+    if (CKPT) store_carry<LPT>(s, 0, ckp, B, Hc, runc);
+    for (int i = 1; i <= P.rlen; ++i) {
+        row_step<LPT>(s, P, i, B, Hc, runc, CKPT ? nullptr : recp + (long long)(i - 1) * B);
+        if (CKPT && i % WV == 0 && i / WV < n_windows)
+            store_carry<LPT>(s, i, ckp + (long long)(i / WV) * 3 * B, B, Hc, runc);
     }
-    __syncthreads();
+}
 
-    for (int i = 1; i <= rlen; ++i) {
-        const int* hP = sH + ((i - 1) & 1) * (B + 1);
-        const int* qP = sQ + ((i - 1) & 1) * (B + 1);
-        int* hC = sH + (i & 1) * (B + 1);
-        int* qC = sQ + (i & 1) * (B + 1);
-        const int rm = sIupac[refp[i - 1]];
-        const bool last_row = i == rlen;
-        const int gap_cost = last_row ? 0 : GAP_OPEN;
-        const bool chunk_row = (i - 1) % DP_C == 0;
-
-        // pass 1: everything up to the horizontal-gap input P
-        int Mv[LPT], QGv[LPT], NQv[LPT], Pv[LPT], pathv[LPT], rund[LPT];
-        bool inm[LPT], intr[LPT], fcol[LPT];
-        int tot = NO_ALIGN;
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-            const int k = k0 + j;
-            const int q = i + k - off;
-            const bool in_matrix = q >= 0 && q <= qlen;  // and i <= rlen, true in the loop
-            int Hd = Hc[j];
-            int rd = runc[j];
-            if (k == 0 && chunk_row) {
-                Hd = NO_ALIGN;
-                rd = 0;
-            }
-            const int Hu = hP[k + 1];
-            const int qgu = qP[k + 1];
-            const bool diag_valid = q >= 1 && in_matrix;
-            const bool up_valid = k != B - 1 && diag_valid;
-            const bool interior = q >= 1 && !last_row && q < qlen && in_matrix;
-            int path = (!diag_valid && interior) ? BOUNDARY : 0;
-            int M = NO_ALIGN;
-            if (diag_valid) {
-                const int qm = sIupac[qryp[q - 1]];
-                const int msub = (rm == 15 || qm == 15) ? SCORE_MATCH - 1
-                               : ((rm & qm) ? SCORE_MATCH : -PENALTY_MISMATCH);
-                M = Hd + msub;
-            }
-            const int q_open = (q == qlen) ? Hu : Hu - GAP_OPEN;
-            const bool q_ext = qgu >= q_open && k < B - 2;
-            const int QG = up_valid ? (q_ext ? qgu : q_open) : NO_ALIGN;
-            if (up_valid && q_ext) path |= QRY_GAP_EXTEND;
-            if (!up_valid && interior) path |= BOUNDARY;
-            const bool first_col = q == 0 && in_matrix;
-            if (first_col) M = 0;
-            const int NQ = max(M, QG);
-            const int P = in_matrix ? NQ - gap_cost : NO_ALIGN;
-            Mv[j] = M;
-            QGv[j] = QG;
-            NQv[j] = NQ;
-            Pv[j] = P;
-            pathv[j] = path;
-            rund[j] = rd;
-            inm[j] = in_matrix;
-            intr[j] = interior;
-            fcol[j] = first_col;
-            tot = max(tot, P);
-        }
-
-        // exclusive prefix-max of P across the band: warp scan of the
-        // per-thread maxima, then the totals of the warps below
-        int incl = tot;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int v = __shfl_up_sync(FULL, incl, d);
-            if (lane_id >= d) incl = max(incl, v);
-        }
-        int excl = __shfl_up_sync(FULL, incl, 1);
-        int excl_prev = __shfl_up_sync(FULL, incl, 2);
-        if (lane_id < 1) excl = NO_ALIGN;
-        if (lane_id < 2) excl_prev = NO_ALIGN;
-        const int incl30 = __shfl_sync(FULL, incl, 30);
-        // the values lane k0-1 (the previous thread's last lane) contributes
-        int nb_nq = __shfl_up_sync(FULL, NQv[LPT - 1], 1);
-        int nb_im = __shfl_up_sync(FULL, (int)inm[LPT - 1], 1);
-        int nb_p0 = __shfl_up_sync(FULL, Pv[0], 1);
-        if (lane_id == 31) {
-            sTot[warp] = incl;
-            sTot30[warp] = incl30;
-            sNQ[warp] = NQv[LPT - 1];
-            sIM[warp] = inm[LPT - 1];
-            sP0[warp] = Pv[0];
-        }
-        __syncthreads();
-
-        int pre = NO_ALIGN, pre_prev = NO_ALIGN;  // max over warps < warp, < warp-1
-        for (int w = 0; w < warp; ++w) {
-            pre_prev = pre;
-            pre = max(pre, sTot[w]);
-        }
-        int x_prev;  // exclusive prefix-max before the previous thread's lanes
-        if (lane_id == 0) {
-            if (warp > 0) {
-                x_prev = max(pre_prev, sTot30[warp - 1]);
-                nb_nq = sNQ[warp - 1];
-                nb_im = sIM[warp - 1];
-                nb_p0 = sP0[warp - 1];
-            } else {
-                x_prev = NO_ALIGN;  // lane 0 has no lane below it
-            }
-        } else {
-            x_prev = max(pre, excl_prev);
-        }
-        int E = max(pre, excl);                            // exclusive prefix at lane k0
-        int e_m1 = (LPT == 1) ? x_prev : max(x_prev, nb_p0);  // ... at lane k0-1
-        int nq_m1 = nb_nq;
-        bool im_m1 = nb_im != 0;
-
-        // pass 2: horizontal gap, origin, record, carries
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-            const int k = k0 + j;
-            const int Ej = E;
-            E = max(E, Pv[j]);
-            const int Gv = (k == 0 || !inm[j]) ? NO_ALIGN : Ej;
-            int prevG = NO_ALIGN, r_open_prev = NO_ALIGN;
-            if (k > 0) {
-                prevG = (k == 1 || !im_m1) ? NO_ALIGN : e_m1;
-                r_open_prev = max(nq_m1, prevG) - gap_cost;
-            }
-            const bool r_ext = prevG >= r_open_prev && k > 1;
-            int path = pathv[j];
-            if (k == 0 && intr[j]) path |= BOUNDARY;
-            if (Gv > NO_ALIGN && r_ext) path |= REF_GAP_EXTEND;
-            const int M = Mv[j];
-            const int QG = QGv[j];
-            int best_mr = M, origin = MATCH;
-            if (Gv >= M) {
-                best_mr = Gv;
-                origin = REF_GAP_MATRIX;
-            }
-            int H = best_mr;
-            if (QG >= best_mr) {
-                H = QG;
-                origin = QRY_GAP_MATRIX;
-            }
-            if (fcol[j]) {
-                H = 0;
-                origin = QRY_GAP_MATRIX;
-                path = QRY_GAP_EXTEND;
-            }
-            path |= origin;
-            if (!inm[j]) {
-                H = NO_ALIGN;
-                path = 0;
-            }
-            const int run = (path & MATCH) ? rund[j] + 1 : 0;
-            recp[(long long)(i - 1) * B + k] = (uint16_t)(path | (min(run, RUN_CAP) << 6));
-            hC[k] = H;
-            qC[k] = QG;
-            Hc[j] = H;
-            runc[j] = run;
-            // this lane is lane k-1 of the next one
-            nq_m1 = NQv[j];
-            im_m1 = inm[j];
-            e_m1 = Ej;
-        }
-        __syncthreads();
-    }
+template <bool CKPT>
+int launch(const void* ref, long long ref_stride, const void* qry, long long qry_stride,
+           const void* rlen, const void* qlen, const void* ms, const void* W, const void* iupac,
+           void* rec, long long rec_rows, void* ckpt, int n_windows, int WV, int B, int m, void* stream)
+{
+    if (m <= 0) return 0;
+    if (B < 128 || B > 2048 || B % 128 != 0) return (int)cudaErrorInvalidValue;
+    if (CKPT && (WV < DP_C || WV % DP_C != 0 || n_windows < 1)) return (int)cudaErrorInvalidValue;
+    const int lpt = B > 1024 ? 2 : 1;
+    const int threads = B / lpt;
+    const size_t shm = row_smem_bytes(B);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint8_t* r = static_cast<const uint8_t*>(ref);
+    const uint8_t* q = static_cast<const uint8_t*>(qry);
+    const int* rl = static_cast<const int*>(rlen);
+    const int* ql = static_cast<const int*>(qlen);
+    const int* msp = static_cast<const int*>(ms);
+    const int* wp = static_cast<const int*>(W);
+    const uint8_t* iu = static_cast<const uint8_t*>(iupac);
+    uint16_t* out = static_cast<uint16_t*>(rec);
+    int* ck = static_cast<int*>(ckpt);
+    if (lpt == 1)
+        stripe_dp_kernel<1, CKPT><<<m, threads, shm, st>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu,
+                                                             out, rec_rows, ck, n_windows, WV, B);
+    else
+        stripe_dp_kernel<2, CKPT><<<m, threads, shm, st>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu,
+                                                             out, rec_rows, ck, n_windows, WV, B);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -270,23 +99,17 @@ extern "C" int stripe_dp_launch(
     const void* rlen, const void* qlen, const void* ms, const void* W, const void* iupac,
     void* rec, long long rec_rows, int B, int m, void* stream)
 {
-    if (m <= 0) return 0;
-    if (B < 128 || B > 2048 || B % 128 != 0) return (int)cudaErrorInvalidValue;
-    const int lpt = B > 1024 ? 2 : 1;
-    const int threads = B / lpt;
-    const size_t shm = smem_bytes(B);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const uint8_t* r = static_cast<const uint8_t*>(ref);
-    const uint8_t* q = static_cast<const uint8_t*>(qry);
-    const int* rl = static_cast<const int*>(rlen);
-    const int* ql = static_cast<const int*>(qlen);
-    const int* msp = static_cast<const int*>(ms);
-    const int* wp = static_cast<const int*>(W);
-    const uint8_t* iu = static_cast<const uint8_t*>(iupac);
-    uint16_t* out = static_cast<uint16_t*>(rec);
-    if (lpt == 1)
-        stripe_dp_kernel<1><<<m, threads, shm, s>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu, out, rec_rows, B);
-    else
-        stripe_dp_kernel<2><<<m, threads, shm, s>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu, out, rec_rows, B);
-    return (int)cudaGetLastError();
+    return launch<false>(ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, rec, rec_rows,
+                         nullptr, 0, 0, B, m, stream);
+}
+
+// Checkpoint mode: ckpt [m][n_windows][3][B] int32, window start rows w * WV;
+// windows that start past a problem's rlen are left as they were.
+extern "C" int stripe_dp_ckpt_launch(
+    const void* ref, long long ref_stride, const void* qry, long long qry_stride,
+    const void* rlen, const void* qlen, const void* ms, const void* W, const void* iupac,
+    void* ckpt, int n_windows, int WV, int B, int m, void* stream)
+{
+    return launch<true>(ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, nullptr, 0,
+                        ckpt, n_windows, WV, B, m, stream);
 }

@@ -29,20 +29,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "walk_step.cuh"
+
 namespace {
 
-constexpr int MATCH = 1;
-constexpr int REF_GAP_MATRIX = 2;
-constexpr int QRY_GAP_MATRIX = 4;
-constexpr int REF_GAP_EXTEND = 8;
-constexpr int QRY_GAP_EXTEND = 16;
-constexpr int BOUNDARY = 32;
-constexpr unsigned OP_M = 1;
-constexpr unsigned OP_D = 2;
-
-__device__ __forceinline__ int del_word(int ia, int dl) {
-    return (int)(OP_D | ((unsigned)ia << 2) | ((unsigned)dl << 17));
-}
+using namespace walkstep;
 
 __global__ void walk_kernel(
     const uint16_t* __restrict__ rec, long long rec_rows, int B,
@@ -57,60 +48,14 @@ __global__ void walk_kernel(
     int* rows_p = rows + (long long)p * K;
     int* words_p = words + (long long)p * K;
     const int off = ms_a[p] + W_a[p];
-    int i = rlen_a[p];
-    int q = qlen_a[p];
-    int st = 0, ins = 0, dl = 0, ia = 0, cnt = 0, dead = 0, bnd = 0;
-    while (i > 0) {
-        const int k = q + off - i;
-        const int word = (k >= 0 && k < B) ? (int)R[(long long)(i - 1) * B + k] : 0;
-        const int bits = word & 63;
-        const int runv = word >> 6;
-        if (bits & BOUNDARY) bnd = 1;
-        const bool take_m = st == 0 && (bits & MATCH);
-        const bool take_i = (st == 0 && (bits & REF_GAP_MATRIX) && !take_m) || st == REF_GAP_MATRIX;
-        const bool take_d = (st == 0 && (bits & QRY_GAP_MATRIX) && !take_m && !take_i) || st == QRY_GAP_MATRIX;
-        if (bits == 0 || !(take_m || take_i || take_d)) {
-            dead = 1;
-            break;
-        }
-        const bool emit_d = (take_m || take_i) && dl > 0;
-        if (emit_d || (take_m && ins > 0 && dl == 0)) {
-            const int idx = min(cnt, K - 1);
-            rows_p[idx] = emit_d ? i : i - 1;
-            words_p[idx] = emit_d ? del_word(ia, dl) : (int)(OP_M | ((unsigned)ins << 2));
-            ++cnt;
-        }
-        const int new_ia = (take_d && dl == 0) ? ins : (emit_d ? 0 : ia);
-        dl = take_d ? dl + 1 : (emit_d ? 0 : dl);
-        ia = new_ia;
-        if (take_m) {
-            // jump the match run, stopping at the start of this row's segment
-            const int L = min(max(runv, 1), i - (i - 1) / seg * seg);
-            i -= L;
-            q -= L;
-            ins = 0;
-        } else if (take_d) {
-            i -= 1;
-            ins = 0;
-            st = (bits & QRY_GAP_EXTEND) ? QRY_GAP_MATRIX : 0;
-        } else {
-            q -= 1;
-            ins += 1;
-            st = (bits & REF_GAP_EXTEND) ? REF_GAP_MATRIX : 0;
-        }
+    Walker w = walker(rlen_a[p], qlen_a[p]);
+    while (w.i > 0 && !w.dead) {
+        const int k = w.q + off - w.i;
+        const int word = (k >= 0 && k < B) ? (int)R[(long long)(w.i - 1) * B + k] : 0;
+        // a match jump stops at the start of this row's segment
+        walk_move(w, word, (w.i - 1) / seg * seg, K, rows_p, words_p);
     }
-    // a deletion run reaching row 0 is flushed once, at the end of the walk
-    if (i == 0 && !dead && dl > 0) {
-        const int idx = min(cnt, K - 1);
-        rows_p[idx] = 0;
-        words_p[idx] = del_word(ia, dl);
-        ++cnt;
-    }
-    nev[p] = cnt;
-    meta[4 * p + 0] = q;                       // lead insertion length
-    meta[4 * p + 1] = dead | (i > 0 ? 1 : 0);  // walk died before row 0
-    meta[4 * p + 2] = bnd;                     // a visited cell touched the band edge
-    meta[4 * p + 3] = ins;                     // pending insertion run at walk end
+    walk_finish(w, K, rows_p, words_p, nev + p, meta + 4 * (long long)p);
 }
 
 }  // namespace

@@ -11,14 +11,24 @@ Routing is static. Every job the kernels can take runs on the device; the
 host C++ engine (native/stripe.cpp) takes the jobs the kernels cannot:
 bands past the widest kernel band that the host can still widen, jobs past
 the largest length tier or whose end corner lies outside the widest band,
-tiers whose records do not fit the device budget, dead walks without a
-boundary hit, and jobs whose retries ran out. With device=None every job
-runs on the host engine.
+event-dense jobs of the checkpoint route, dead walks without a boundary
+hit, and jobs whose retries ran out. With device=None every job runs on the
+host engine.
+
+A (tier, band) group runs on one of two kernel routes: the stripe DP and
+its walk over full records, or the checkpoint pair (stripe_dp_ckpt +
+walk_ckpt), which holds only window-start carries. A group takes the
+checkpoint route when its records would not fit (v2 records of a minimum
+group of 8 problems over a launch's share of the budget), or when the
+reference's explicit override says so: its per-problem record bytes
+R_cap * (B + 128) * 2 over `ckpt_paths_bytes` (by default the
+PANGRAPH_TPU_CKPT_BYTES environment variable, as in the reference).
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -29,7 +39,17 @@ import torch
 from pangraph_tpu_torch.align.params import BandedAlignParams, BandParameters
 from pangraph_tpu_torch.graph.edits import Del, Edit, Ins, Sub
 from pangraph_tpu_torch.graph.seq import IUPAC_MASK, as_seq
-from pangraph_tpu_torch.ops.stripe_v2 import MAX_B, edit_from_events, stripe_align, walk_segment
+from pangraph_tpu_torch.ops.stripe_v2 import (
+    DP_C,
+    MAX_B,
+    ckpt_layout,
+    ckpt_windows,
+    edit_from_events,
+    stripe_align,
+    stripe_align_ckpt,
+    walk_ckpt_grid,
+    walk_segment,
+)
 from pangraph_tpu_torch.utils import trace
 
 
@@ -85,10 +105,12 @@ def _edit_from_rle_hostmatch(ops, n_ops, subs, n_subs, lead_ins, qry) -> Edit:
 
 
 class BatchAligner:
-    """Batched aligner: the CUDA stripe DP and walk on `device` ("cuda", or
-    "cpu" for their plain PyTorch versions), the host C++ engine for the
-    jobs the kernels cannot take. device=None aligns every job on the host
-    engine. Thread-safe: merges call align_many from several threads."""
+    """Batched aligner: the CUDA stripe DP and walk, or their checkpoint
+    pair, on `device` ("cuda", or "cpu" for their plain PyTorch versions),
+    the host C++ engine for the jobs the kernels cannot take. device=None
+    aligns every job on the host engine. ckpt_paths_bytes is the override
+    that sends tiers to the checkpoint route (see the module docstring).
+    Thread-safe: merges call align_many from several threads."""
 
     # length tiers: a job rides the smallest tier >= its length + 2; jobs
     # beyond the largest go to host. The tier sets the walk's segment rows
@@ -108,18 +130,28 @@ class BatchAligner:
     # problems per launch: one block each, enough to fill the card many times
     MAX_BATCH = 8192
 
+    # the checkpoint route's event capacity: denser jobs go to the host
+    CKPT_K_CAP = 2048
+
     # per-engine DP-cell accounting: engine -> [cells, warm_cells, warm_secs].
     # No engine compiles inside a round here, so every cell is warm; the
     # fields keep the reference's receipt shape.
     ENGINE = {"host": [0, 0, 0.0], "device": [0, 0, 0.0]}
     _ENGINE_LOCK = threading.Lock()
-    STATS = []  # (kind, n_jobs, cells, seconds, ref_bp) per round
+    # (kind, n_jobs, cells, seconds, ref_bp): one row per round, and one per
+    # kernel route, length tier and band a device round ran
+    # ("device.stripe.<R_cap>.<B>", "device.ckpt.<R_cap>.<B>"; its seconds
+    # are the device leg's)
+    STATS = []
 
     def __init__(self, params: BandedAlignParams = None, extra_band_width: int = 5, max_attempts: int = 4,
-                 device="cuda"):
+                 device="cuda", ckpt_paths_bytes: int = None):
         self.params = params or BandedAlignParams()
         self.extra = extra_band_width
         self.max_attempts = max_attempts
+        if ckpt_paths_bytes is None:
+            ckpt_paths_bytes = int(float(os.environ.get("PANGRAPH_TPU_CKPT_BYTES", 1e18)))
+        self.ckpt_paths_bytes = ckpt_paths_bytes
         self.device = None if device is None else torch.device(device)
         if self.device is not None and self.device.type == "cuda":
             from pangraph_tpu_torch.ops import cuda_build
@@ -252,6 +284,20 @@ class BatchAligner:
             }
         tot = sum(v[0] for v in engines.values())
         out["device_cells_frac"] = round(engines["device"][0] / tot, 4) if tot else None
+        routes, tiers = {}, {}
+        with cls._ENGINE_LOCK:
+            for kind, n, cells, _s, _bp in cls.STATS:
+                if kind.startswith("device."):
+                    _, route, R_cap, B = kind.split(".")
+                    routes[route] = routes.get(route, 0) + int(cells)
+                    t = tiers.setdefault((int(R_cap), route), [0, 0, int(B), int(B)])
+                    t[0] += n
+                    t[1] += int(cells)
+                    t[2], t[3] = min(t[2], int(B)), max(t[3], int(B))
+        out["device_routes"] = routes  # device cells per kernel route
+        # per length tier and route: [jobs, cells, B min, B max] (a job
+        # retried in a later round counts again)
+        out["device_tiers"] = {f"{R_cap}/{route}": v for (R_cap, route), v in sorted(tiers.items())}
         return out
 
     @classmethod
@@ -377,7 +423,8 @@ class BatchAligner:
 
     def _plan(self, jobs: list, widths: list, kbumps: list):
         """Bucket the round's jobs by (tier, band) into launches. Returns
-        (planned, fallback_idx); planned holds (job indices, R_cap, B, K)."""
+        (planned, fallback_idx); planned holds (job indices, R_cap, B, K,
+        ckpt), ckpt True for the checkpoint route."""
         groups = {}
         fallback_idx = []
         max_w = (self.MAX_B - 2) // 2
@@ -398,15 +445,13 @@ class BatchAligner:
                 continue
             groups.setdefault((tier, B), []).append(i)
 
-        # a launch's records may take a quarter of the budget, so that two
-        # merge threads' rounds can be resident at once
+        # a launch's device bytes may take a quarter of the budget, so that
+        # two merge threads' rounds can be resident at once
         batch_bytes = self.budget // 4
         planned = []
         for (R_cap, B), idxs in groups.items():
-            per_problem = R_cap * B * 2  # int16 records, upper bound
-            if per_problem > batch_bytes:
-                fallback_idx.extend(idxs)
-                continue
+            ckpt = self._use_ckpt(R_cap, B, batch_bytes)
+            per_problem = self._problem_bytes(R_cap, B, ckpt, R_cap, R_cap)  # an upper bound
             M = max(1, min(batch_bytes // per_problem, self.MAX_BATCH))
             idxs = sorted(idxs, key=lambda i: -len(jobs[i].ref))
             for c0 in range(0, len(idxs), M):
@@ -416,13 +461,30 @@ class BatchAligner:
                 bump = max(kbumps[i] for i in sub)
                 # events are indel RUNS, so the buffer scales with divergence,
                 # not length; overflow triggers a retry with 4x capacity.
-                # Power-of-four ladder.
-                K_need = max(64, 64 + max_len // 256, 2 * max_hint) * bump
+                # Power-of-four ladder. The checkpoint route sends event-dense
+                # sub-batches to the host instead (the reference's rule).
+                if ckpt:
+                    K_need = max(64, 64 + max_len // 4096, 2 * max_hint) * bump
+                    K_cap = self.CKPT_K_CAP
+                else:
+                    K_need = max(64, 64 + max_len // 256, 2 * max_hint) * bump
+                    K_cap = 16384
                 K = 64
-                while K < K_need and K < 16384:
+                while K < K_need and K < K_cap:
                     K *= 4
-                planned.append((sub, R_cap, B, K))
+                if ckpt and K_need > K_cap:
+                    fallback_idx.extend(sub)
+                    continue
+                planned.append((sub, R_cap, B, K, ckpt))
         return planned, fallback_idx
+
+    def _use_ckpt(self, R_cap: int, B: int, batch_bytes: int) -> bool:
+        """Does a (tier, band) group take the checkpoint route? Yes past the
+        reference's override, compared on the reference's per-problem record
+        bytes (window coordinates, B + 128 lanes) so that one value routes
+        the same tiers in both packages; and when v2 records of a minimum
+        group of 8 problems do not fit a launch's share."""
+        return R_cap * (B + DP_C) * 2 > self.ckpt_paths_bytes or 8 * R_cap * B * 2 > batch_bytes
 
     def _run_round_device(self, jobs: list, widths: list, kbumps: list):
         """Device round: DP + walk per launch, events decoded on host. Jobs
@@ -443,8 +505,15 @@ class BatchAligner:
                 self._run_planned(jobs, planned, edits, boundary, overflow)
                 dt = time.time() - t_dev
                 # per-job (unpadded) device cells, for the engine receipts
-                dev_cells = sum(self._job_cells(jobs[i], (B - 2) // 2) for sub, _, B, _ in planned for i in sub)
+                groups = {}
+                for sub, R_cap, B, _, ckpt in planned:
+                    g = groups.setdefault(("ckpt" if ckpt else "stripe", R_cap, B), [[], 0])
+                    g[0].extend(jobs[i] for i in sub)
+                    g[1] += sum(self._job_cells(jobs[i], (B - 2) // 2) for i in sub)
+                dev_cells = sum(c for _, c in groups.values())
                 self._engine_count("device", dev_cells, dev_cells, dt)
+                for (route, R_cap, B), (g_jobs, cells) in groups.items():
+                    self._record(f"device.{route}.{R_cap}.{B}", g_jobs, cells, dt)
             for i, f in fb_futs.items():
                 edits[i] = f.result()
         finally:
@@ -463,15 +532,30 @@ class BatchAligner:
             stream = self._local.stream = torch.cuda.Stream(device=self.device)
         return torch.cuda.stream(stream)
 
+    @staticmethod
+    def _problem_bytes(R_cap: int, B: int, ckpt: bool, R: int, Q: int) -> int:
+        """Device bytes of one problem padded to R reference and Q query
+        bytes: its int16 records, or its carries and its input rows."""
+        return ckpt_windows(R_cap, B) * 3 * B * 4 + R + Q if ckpt else R * B * 2
+
+    def _launch_bytes(self, jobs, sub, R_cap: int, B: int, ckpt: bool) -> int:
+        """Device bytes of one launch: its problems' bytes, and the
+        checkpoint walk's scratch."""
+        m = len(sub)
+        R = max(len(jobs[i].ref) for i in sub)
+        Q = max(len(jobs[i].qry) for i in sub)
+        scratch = walk_ckpt_grid(m, B) * ckpt_layout(B) * B * 2 if ckpt else 0
+        return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + scratch
+
     def _run_planned(self, jobs, planned, edits, boundary, overflow) -> None:
         # one grant per round: launches run one after another on the stream,
         # and a launch's records are freed once its walk is queued
-        grant = max(len(sub) * max(len(jobs[i].ref) for i in sub) * B * 2 for sub, _, B, _ in planned)
+        grant = max(self._launch_bytes(jobs, sub, R_cap, B, ckpt) for sub, R_cap, B, _, ckpt in planned)
         self._mem_acquire(grant)
         try:
             with self._stream_scope():
                 launched = []
-                for sub, R_cap, B, K in planned:
+                for sub, R_cap, B, K, ckpt in planned:
                     with trace.span("align.pack"):
                         m = len(sub)
                         R = max(max(len(jobs[i].ref) for i in sub), 1)
@@ -490,7 +574,11 @@ class BatchAligner:
                             qlen[s] = len(j.qry)
                             msv[s] = j.band.mean_shift
                     with trace.span("align.dispatch"):
-                        out = stripe_align(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, walk_segment(R_cap, B), self.device)
+                        if ckpt:
+                            out = stripe_align_ckpt(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, R_cap, self.device)
+                        else:
+                            out = stripe_align(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, walk_segment(R_cap, B),
+                                               self.device)
                     launched.append((sub, K, out))
                 with trace.span("align.fetch"):
                     fetched = [

@@ -4,8 +4,9 @@ Each `.cu` source exports a plain C launcher and includes no PyTorch header,
 so `nvcc` builds it in seconds into a shared library that ctypes loads. The
 sources compile in parallel, one `nvcc` each, for sm_90a (Hopper), into
 BUILD_DIR beside the package (listed in .gitignore); a library's file name
-carries a hash of its source, so an edited source is rebuilt and an
-unchanged one is not. Nothing is compiled at import: the first launch, or
+carries a hash of its source and of the headers in csrc/ (the DP's row step
+and the walk's move are shared headers), so an edited source or header is
+rebuilt and an unchanged one is not. Nothing is compiled at import: the first launch, or
 an explicit `build_all()`, builds.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "_build", "kernels")
-SOURCES = ("stripe_dp.cu", "walk.cu")
+SOURCES = ("stripe_dp.cu", "walk.cu", "walk_ckpt.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +37,12 @@ _ARGTYPES = {
     "stripe_dp_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # rec, rec_rows, B, rlen, qlen, ms, W, seg, K, rows, words, n_events, meta, m, stream
     "walk_launch": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B, m, stream
+    "stripe_dp_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B,
+    # scratch, grid, K, rows, words, n_events, meta, m, stream
+    "walk_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -47,9 +54,11 @@ def nvcc() -> str:
 
 
 def _so_path(src: str) -> str:
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.blake2b(f.read() + " ".join(NVCC_FLAGS).encode(), digest_size=8).hexdigest()
-    return os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}_{digest}.so")
+    h = hashlib.blake2b(" ".join(NVCC_FLAGS).encode(), digest_size=8)
+    for name in [src] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}_{h.hexdigest()}.so")
 
 
 def _load(so: str):

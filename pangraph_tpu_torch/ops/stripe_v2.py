@@ -1,5 +1,6 @@
-"""Banded stripe DP and its run-jump traceback: the two CUDA kernels of the
-alignment path, their plain PyTorch versions, and the host decode.
+"""Banded stripe DP and its run-jump traceback: the CUDA kernels of the
+alignment path (the DP and the walk, and their checkpoint pair), their
+plain PyTorch versions, and the host decode.
 
 The reference runs these as Pallas kernels in 128-row window coordinates
 (pangraph_tpu/ops/stripe_v2.py). Here the records are kept in band
@@ -12,10 +13,18 @@ diagonal MATCH run ending at it: `bits | min(run, RUN_CAP) << 6` as int16,
 read back as unsigned 16-bit. The walk jumps whole match runs, so its cost
 scales with the number of indel events, not with the alignment length.
 
-Each kernel has a wrapper (`stripe_dp`, `walk`) that takes tensors: on a CUDA
-tensor it launches the kernel on the current stream (or raises), on a CPU
-tensor it runs the plain version (`stripe_dp_plain`, `walk_plain`), which
-the tests hold against the Pallas kernels element for element.
+For problems whose records would not fit device memory, the checkpoint
+pair (`stripe_dp_ckpt`, `walk_ckpt`) runs the same recurrence but keeps
+only the DP's carry at the start of every window of WV rows
+(`ckpt_layout`); the walk re-derives a window's records from its carry
+when it needs them, and crosses windows that a match run covers without
+reading any.
+
+Each kernel has a wrapper (`stripe_dp`, `walk`, `stripe_dp_ckpt`,
+`walk_ckpt`) that takes tensors: on a CUDA tensor it launches the kernel on
+the current stream (or raises), on a CPU tensor it runs the plain version
+(`stripe_dp_plain`, `walk_plain`, ...), which the tests hold against the
+Pallas kernels element for element.
 
 Scoring matches the reference aligner: match 3, mismatch -1 by IUPAC mask
 overlap, N (mask 15) on either side 2, gap open 6, gap extend 0, free
@@ -58,7 +67,7 @@ MAX_B = 2048
 
 # kernel launches, per wrapper: one is added where a kernel is launched and
 # nowhere else (the plain versions do not count)
-LAUNCHES = {"stripe_dp": 0, "walk": 0}
+LAUNCHES = {"stripe_dp": 0, "walk": 0, "stripe_dp_ckpt": 0, "walk_ckpt": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -130,103 +139,126 @@ def _check_walk_inputs(rec, rlen, qlen, ms, W, seg: int, K: int) -> None:
 # --------------------------------------------------------------- DP
 
 
-def stripe_dp_plain(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
-    """Plain PyTorch version of the DP kernel: a loop over rows, vectorized
-    over problems and band lanes. Same inputs and output as `stripe_dp`;
-    rows past a problem's rlen are 0."""
-    dev = ref.device
-    i32 = torch.int32
-    m, R = ref.shape
-    Q = max(qry.shape[1], 1)
-    if qry.shape[1] == 0:
-        qry = torch.zeros((m, 1), dtype=torch.uint8, device=dev)
-    rec = torch.zeros((m, R, B), dtype=torch.int16, device=dev)
-    if m == 0:
-        return rec
+class _RowStep:
+    """The DP's row recurrence, vectorized over problems and band lanes: the
+    one Python definition of it, which stripe_dp_plain, stripe_dp_ckpt_plain
+    and walk_ckpt_plain's window re-derive all call. A carry (H, qg, run) is
+    three [m, B] int32 tensors in band coordinates: row i-1's H, its query
+    gap, and its uncapped MATCH run."""
 
-    def full(v):
-        return torch.full((m, B), v, dtype=i32, device=dev)
+    def __init__(self, ref_mask, qry_mask, rl, ql, q0, B: int):
+        dev = ref_mask.device
+        self.ref_mask, self.qry_mask, self.rl, self.ql, self.q0 = ref_mask, qry_mask, rl, ql, q0
+        self.B = B
+        m = ref_mask.shape[0]
+        k = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+        self.lane0, self.lane_hi = k == 0, k == B - 1
+        self.q_ext_lane, self.r_ext_lane = k < B - 2, k > 1
+        self.na_col = torch.full((m, 1), NO_ALIGN, dtype=torch.int32, device=dev)
+        # int32 constants for torch.where, built once (a where of two Python
+        # ints would give int64)
+        self.c = {v: torch.tensor(v, dtype=torch.int32, device=dev) for v in (
+            0, MATCH, REF_GAP_MATRIX, QRY_GAP_MATRIX, REF_GAP_EXTEND, QRY_GAP_EXTEND, BOUNDARY,
+            QRY_GAP_EXTEND | QRY_GAP_MATRIX, SCORE_MATCH, SCORE_MATCH - 1, -PENALTY_MISMATCH, GAP_OPEN)}
 
-    iupac = torch.as_tensor(IUPAC_MASK, device=dev).to(i32)
-    ref_mask = iupac[ref.long()]
-    qry_mask = iupac[qry.long()]
-    k = torch.arange(B, dtype=i32, device=dev)[None, :]
-    rl = rlen[:, None]
-    ql = qlen[:, None]
-    q0 = k - (ms + W)[:, None]  # query position of each lane at row 0
-    NA, ZERO = full(NO_ALIGN), full(0)
-    na_col = torch.full((m, 1), NO_ALIGN, dtype=i32, device=dev)
-    lane0, lane_hi = k == 0, k == B - 1
-    q_ext_lane, r_ext_lane = k < B - 2, k > 1
+    @classmethod
+    def of(cls, ref, qry, rlen, qlen, ms, W, B: int) -> "_RowStep":
+        dev = ref.device
+        m = ref.shape[0]
+        if qry.shape[1] == 0:
+            qry = torch.zeros((m, 1), dtype=torch.uint8, device=dev)
+        iupac = torch.as_tensor(IUPAC_MASK, device=dev).to(torch.int32)
+        k = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+        # q0: query position of each lane at row 0
+        return cls(iupac[ref.long()], iupac[qry.long()], rlen[:, None], qlen[:, None], k - (ms + W)[:, None], B)
 
-    # row 0: free leading insertion wherever 0 <= q <= qlen
-    H = torch.where((q0 >= 0) & (q0 <= ql), ZERO, NA)
-    qg = NA.clone()
-    run = ZERO.clone()
-    for i in range(1, int(rlen.max()) + 1):
-        q = q0 + i
+    def take(self, idx) -> "_RowStep":
+        """The same step for the problems `idx` only."""
+        return _RowStep(self.ref_mask[idx], self.qry_mask[idx], self.rl[idx], self.ql[idx], self.q0[idx], self.B)
+
+    def full(self, v) -> torch.Tensor:
+        return torch.full((self.ref_mask.shape[0], self.B), v, dtype=torch.int32, device=self.ref_mask.device)
+
+    def row0(self):
+        """Row 0's carry: a free leading insertion wherever 0 <= q <= qlen."""
+        H = torch.where((self.q0 >= 0) & (self.q0 <= self.ql), self.full(0), self.full(NO_ALIGN))
+        return H, self.full(NO_ALIGN), self.full(0)
+
+    def __call__(self, i: int, H, qg, run):
+        """Row i (1-based) from row i-1's carry. Returns row i's carry and its
+        records [m, B] int16; a problem with i > rlen keeps its carry and gets
+        records 0."""
+        c, na_col, lane0, rl, ql = self.c, self.na_col, self.lane0, self.rl, self.ql
+        zero = c[0]
+        q = self.q0 + i
         live = i <= rl
         in_matrix = (q >= 0) & (q <= ql) & live
         if (i - 1) % DP_C == 0:
-            Hd, rund = torch.where(lane0, NA, H), torch.where(lane0, ZERO, run)
+            Hd, rund = torch.where(lane0, NO_ALIGN, H), torch.where(lane0, 0, run)
         else:
             Hd, rund = H, run
         Hu = torch.cat([H[:, 1:], na_col], 1)
         qgu = torch.cat([qg[:, 1:], na_col], 1)
 
-        rm = ref_mask[:, i - 1 : i]
-        q_in = (q >= 1) & (q <= ql)
-        qm = torch.gather(qry_mask, 1, (q - 1).clamp(0, Q - 1).long())
-        qm = torch.where(q_in, qm, ZERO)
-        unknown = (rm == 15) | (qm == 15)
-        compat = (rm & qm) > 0
-        msub = torch.where(unknown, full(SCORE_MATCH - 1), torch.where(compat, full(SCORE_MATCH), full(-PENALTY_MISMATCH)))
+        rm = self.ref_mask[:, i - 1 : i]
+        qm = torch.gather(self.qry_mask, 1, (q - 1).clamp(0, self.qry_mask.shape[1] - 1).long())
+        qm = torch.where((q >= 1) & (q <= ql), qm, 0)
+        msub = torch.where((rm == 15) | (qm == 15), c[SCORE_MATCH - 1],
+                           torch.where((rm & qm) > 0, c[SCORE_MATCH], c[-PENALTY_MISMATCH]))
 
         diag_valid = (q >= 1) & in_matrix
-        up_valid = ~lane_hi & diag_valid
-        M = torch.where(diag_valid, Hd + msub, NA)
+        up_valid = ~self.lane_hi & diag_valid
+        M = torch.where(diag_valid, Hd + msub, NO_ALIGN)
         interior = (q >= 1) & (i < rl) & (q < ql) & in_matrix
-        path = torch.where(~diag_valid & interior, full(BOUNDARY), ZERO)
 
         q_open = torch.where(q == ql, Hu, Hu - GAP_OPEN)
-        q_ext = (qgu >= q_open) & q_ext_lane
-        QG = torch.where(up_valid, torch.where(q_ext, qgu, q_open), NA)
-        path = path | torch.where(up_valid & q_ext, full(QRY_GAP_EXTEND), ZERO)
-        path = path | torch.where(~up_valid & interior, full(BOUNDARY), ZERO)
+        q_ext = (qgu >= q_open) & self.q_ext_lane
+        QG = torch.where(up_valid, torch.where(q_ext, qgu, q_open), NO_ALIGN)
 
         first_col = (q == 0) & in_matrix
-        M = torch.where(first_col, ZERO, M)
+        M = torch.where(first_col, 0, M)
         NQ = torch.maximum(M, QG)
 
-        gap_cost = torch.where(i == rl, 0, GAP_OPEN).to(i32)
-        P = torch.where(in_matrix, NQ - gap_cost, NA)
+        gap_cost = torch.where(i == rl, zero, c[GAP_OPEN])
+        P = torch.where(in_matrix, NQ - gap_cost, NO_ALIGN)
         Gx = torch.cat([na_col, torch.cummax(P, 1).values[:, :-1]], 1)  # exclusive prefix max
-        Gv = torch.where(lane0 | ~in_matrix, NA, Gx)
-        path = path | torch.where(lane0 & interior, full(BOUNDARY), ZERO)
+        Gv = torch.where(lane0 | ~in_matrix, NO_ALIGN, Gx)
         prevG = torch.cat([na_col, Gv[:, :-1]], 1)
         r_open_prev = torch.cat([na_col, (torch.maximum(NQ, Gv) - gap_cost)[:, :-1]], 1)
-        r_ext = (prevG >= r_open_prev) & r_ext_lane
-        path = path | torch.where((Gv > NO_ALIGN) & r_ext, full(REF_GAP_EXTEND), ZERO)
+        r_ext = (prevG >= r_open_prev) & self.r_ext_lane
 
+        # flags: BOUNDARY where an interior cell lacks its diagonal or
+        # vertical predecessor (lane B-1) or its horizontal one (lane 0)
+        path = (torch.where(interior & (~up_valid | lane0), c[BOUNDARY], zero)
+                | torch.where(up_valid & q_ext, c[QRY_GAP_EXTEND], zero)
+                | torch.where((Gv > NO_ALIGN) & r_ext, c[REF_GAP_EXTEND], zero))
         ge = Gv >= M
         best_mr = torch.where(ge, Gv, M)
-        origin = torch.where(ge, full(REF_GAP_MATRIX), full(MATCH))
         qge = QG >= best_mr
-        Hn = torch.where(qge, QG, best_mr)
-        origin = torch.where(qge, full(QRY_GAP_MATRIX), origin)
-        Hn = torch.where(first_col, ZERO, Hn)
-        origin = torch.where(first_col, full(QRY_GAP_MATRIX), origin)
-        path = torch.where(first_col, full(QRY_GAP_EXTEND), path) | origin
-        Hn = torch.where(in_matrix, Hn, NA)
-        path = torch.where(in_matrix, path, ZERO)
+        origin = torch.where(qge, c[QRY_GAP_MATRIX], torch.where(ge, c[REF_GAP_MATRIX], c[MATCH]))
+        # the first column is a free leading insertion: H 0, a query gap
+        Hn = torch.where(in_matrix, torch.where(first_col, zero, torch.where(qge, QG, best_mr)), NO_ALIGN)
+        path = torch.where(first_col, c[QRY_GAP_EXTEND | QRY_GAP_MATRIX], path | origin)
+        path = torch.where(in_matrix, path, zero)
 
-        runn = torch.where(((path & MATCH) > 0) & in_matrix, rund + 1, ZERO)
+        runn = torch.where((path & MATCH) > 0, rund + 1, zero)  # uncapped
         rec32 = path | (runn.clamp(max=RUN_CAP) << 6)
-        rec[:, i - 1] = torch.where(rec32 >= 1 << 15, rec32 - (1 << 16), rec32).to(torch.int16)
+        rec = torch.where(rec32 >= 1 << 15, rec32 - (1 << 16), rec32).to(torch.int16)
+        return torch.where(live, Hn, H), torch.where(live, QG, qg), torch.where(live, runn, run), rec
 
-        H = torch.where(live, Hn, H)
-        qg = torch.where(live, QG, qg)
-        run = torch.where(live, runn, run)
+
+def stripe_dp_plain(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
+    """Plain PyTorch version of the DP kernel: a loop over rows, vectorized
+    over problems and band lanes. Same inputs and output as `stripe_dp`;
+    rows past a problem's rlen are 0."""
+    m, R = ref.shape
+    rec = torch.zeros((m, R, B), dtype=torch.int16, device=ref.device)
+    if m == 0:
+        return rec
+    step = _RowStep.of(ref, qry, rlen, qlen, ms, W, B)
+    H, qg, run = step.row0()
+    for i in range(1, int(rlen.max()) + 1):
+        H, qg, run, rec[:, i - 1] = step(i, H, qg, run)
     return rec
 
 
@@ -298,6 +330,65 @@ def _i32(x: int) -> int:
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
+class _Walker:
+    """One problem's traceback state, walking back from (rlen, qlen). `move`
+    applies one record, as csrc/walk_step.cuh's walk_move does; events go to
+    the problem's rows/words rows (numpy [K] int32)."""
+
+    def __init__(self, i: int, q: int, rows, words):
+        self.i, self.q, self.rows, self.words = i, q, rows, words
+        self.st = self.ins = self.dl = self.ia = self.cnt = self.dead = self.bnd = 0
+        self.rr = 0  # the last match run's rows left below the row its jump stopped at
+
+    def _emit(self, row: int, word: int) -> None:
+        idx = min(self.cnt, len(self.rows) - 1)
+        self.rows[idx] = row
+        self.words[idx] = _i32(word)
+        self.cnt += 1
+
+    def move(self, word: int, floor: int) -> None:
+        """One move from `word`, the record of cell (i, q) (0 out of band); a
+        match-run jump stops at row `floor`."""
+        bits, runv = word & 63, word >> 6
+        st, ins, dl, ia = self.st, self.ins, self.dl, self.ia
+        if bits & BOUNDARY:
+            self.bnd = 1
+        take_m = st == 0 and bits & MATCH
+        take_i = (st == 0 and bits & REF_GAP_MATRIX and not take_m) or st == REF_GAP_MATRIX
+        take_d = (st == 0 and bits & QRY_GAP_MATRIX and not take_m and not take_i) or st == QRY_GAP_MATRIX
+        if bits == 0 or not (take_m or take_i or take_d):
+            self.dead, self.rr = 1, 0
+            return
+        emit_d = (take_m or take_i) and dl > 0
+        if emit_d:
+            self._emit(self.i, OP_D | ia << 2 | dl << 17)
+        elif take_m and ins > 0 and dl == 0:
+            self._emit(self.i - 1, OP_M | ins << 2)
+        self.ia = ins if (take_d and dl == 0) else (0 if emit_d else ia)
+        self.dl = dl + 1 if take_d else (0 if emit_d else dl)
+        self.rr = 0
+        if take_m:
+            run = max(runv, 1)
+            L = min(run, self.i - floor)
+            self.i, self.q, self.ins, self.rr = self.i - L, self.q - L, 0, run - L
+        elif take_d:
+            self.i, self.ins = self.i - 1, 0
+            self.st = QRY_GAP_MATRIX if bits & QRY_GAP_EXTEND else 0
+        else:
+            self.q, self.ins = self.q - 1, ins + 1
+            self.st = REF_GAP_MATRIX if bits & REF_GAP_EXTEND else 0
+
+    def finish(self) -> tuple:
+        """Flush a deletion run that reached row 0; returns (n_events, meta)."""
+        if self.i == 0 and not self.dead and self.dl > 0:
+            self._emit(0, OP_D | self.ia << 2 | self.dl << 17)
+        return self.cnt, (self.q, self.dead | (self.i > 0), self.bnd, self.ins)
+
+
+def _walk_outputs(m: int, K: int):
+    return np.zeros((m, K), np.int32), np.zeros((m, K), np.int32), np.zeros(m, np.int32), np.zeros((m, 4), np.int32)
+
+
 def walk_plain(rec, rlen, qlen, ms, W, seg: int, K: int):
     """Plain version of the walk kernel: a Python loop over problems and
     events, on a host copy of the records. Same inputs and outputs as `walk`;
@@ -306,51 +397,14 @@ def walk_plain(rec, rlen, qlen, ms, W, seg: int, K: int):
     m, _, B = recs.shape
     rl, ql = rlen.cpu().numpy(), qlen.cpu().numpy()
     off = (ms + W).cpu().numpy()
-    rows = np.zeros((m, K), np.int32)
-    words = np.zeros((m, K), np.int32)
-    nev = np.zeros(m, np.int32)
-    meta = np.zeros((m, 4), np.int32)
+    rows, words, nev, meta = _walk_outputs(m, K)
     for p in range(m):
-        i, q, o = int(rl[p]), int(ql[p]), int(off[p])
-        st = ins = dl = ia = cnt = dead = bnd = 0
-        rp = recs[p]
-        while i > 0 and not dead:
-            k = q + o - i
-            word = int(rp[i - 1, k]) if 0 <= k < B else 0
-            bits, runv = word & 63, word >> 6
-            if bits & BOUNDARY:
-                bnd = 1
-            take_m = st == 0 and bits & MATCH
-            take_i = (st == 0 and bits & REF_GAP_MATRIX and not take_m) or st == REF_GAP_MATRIX
-            take_d = (st == 0 and bits & QRY_GAP_MATRIX and not take_m and not take_i) or st == QRY_GAP_MATRIX
-            if bits == 0 or not (take_m or take_i or take_d):
-                dead = 1
-                break
-            emit_d = (take_m or take_i) and dl > 0
-            if emit_d or (take_m and ins > 0 and dl == 0):
-                idx = min(cnt, K - 1)
-                rows[p, idx] = i if emit_d else i - 1
-                words[p, idx] = _i32(OP_D | ia << 2 | dl << 17) if emit_d else _i32(OP_M | ins << 2)
-                cnt += 1
-            new_ia = ins if (take_d and dl == 0) else (0 if emit_d else ia)
-            dl = dl + 1 if take_d else (0 if emit_d else dl)
-            ia = new_ia
-            if take_m:
-                L = min(max(runv, 1), i - (i - 1) // seg * seg)
-                i, q, ins = i - L, q - L, 0
-            elif take_d:
-                i, ins = i - 1, 0
-                st = QRY_GAP_MATRIX if bits & QRY_GAP_EXTEND else 0
-            else:
-                q, ins = q - 1, ins + 1
-                st = REF_GAP_MATRIX if bits & REF_GAP_EXTEND else 0
-        if i == 0 and not dead and dl > 0:
-            idx = min(cnt, K - 1)
-            rows[p, idx] = 0
-            words[p, idx] = _i32(OP_D | ia << 2 | dl << 17)
-            cnt += 1
-        nev[p] = cnt
-        meta[p] = (q, dead | (i > 0), bnd, ins)
+        wk = _Walker(int(rl[p]), int(ql[p]), rows[p], words[p])
+        o, rp = int(off[p]), recs[p]
+        while wk.i > 0 and not wk.dead:
+            k = wk.q + o - wk.i
+            wk.move(int(rp[wk.i - 1, k]) if 0 <= k < B else 0, (wk.i - 1) // seg * seg)
+        nev[p], meta[p] = wk.finish()
     dev = rec.device
     return tuple(torch.from_numpy(a).to(dev) for a in (rows, words, nev, meta))
 
@@ -401,7 +455,243 @@ def walk_cuda(rec, rlen, qlen, ms, W, seg: int, K: int):
     return rows, words, nev, meta
 
 
+# --------------------------------------------------------------- checkpoint pair
+
+
+def ckpt_layout(B: int) -> int:
+    """Rows per checkpoint window at band width B: the reference's WV
+    (pangraph_tpu/ops/stripe_v2.py:ckpt_layout), sized so that its record
+    window of 8 problems, [8, WV, B + 128] int16, fits 8 MB. The walk's match
+    jumps stop at window edges and its run refresh reads the carries there;
+    where a jump stops decides which cells the walk reads, so the port keeps
+    the same windows."""
+    wv = 2048
+    while wv > DP_C and 8 * wv * (B + DP_C) * 2 > 8 * 1024 * 1024:
+        wv //= 2
+    return wv
+
+
+def ckpt_windows(R_cap: int, B: int) -> int:
+    """Checkpoint windows of a tier of R_cap rows."""
+    return -(-R_cap // ckpt_layout(B))
+
+
+# per-block record window of the checkpoint walk, in device memory: the grid
+# is bounded so that all blocks' windows together stay about L2-sized
+WALK_CKPT_SCRATCH_BYTES = 48 << 20
+
+
+def walk_ckpt_grid(m: int, B: int) -> int:
+    """Blocks of the checkpoint walk for m problems (each walks problems
+    p, p + grid, ...); its scratch is grid * WV * B int16."""
+    return max(1, min(m, WALK_CKPT_SCRATCH_BYTES // (ckpt_layout(B) * B * 2)))
+
+
+def _ckpt_windows_for(ref, B: int, R_cap) -> int:
+    R_cap = ref.shape[1] if R_cap is None else R_cap
+    if R_cap < ref.shape[1]:
+        raise ValueError(f"R_cap={R_cap} is below the rows of ref ({ref.shape[1]})")
+    return ckpt_windows(R_cap, B)
+
+
+def stripe_dp_ckpt_plain(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) -> torch.Tensor:
+    """Plain version of the checkpoint DP kernel: the row loop of
+    stripe_dp_plain, keeping only each window's start carry. Same inputs and
+    output as `stripe_dp_ckpt`; windows that start past a problem's rlen
+    are 0."""
+    m = ref.shape[0]
+    WV = ckpt_layout(B)
+    n_windows = _ckpt_windows_for(ref, B, R_cap)
+    ckpt = torch.zeros((m, n_windows, 3, B), dtype=torch.int32, device=ref.device)
+    if m == 0:
+        return ckpt
+    step = _RowStep.of(ref, qry, rlen, qlen, ms, W, B)
+    carry = step.row0()
+    ckpt[:, 0] = torch.stack(carry, 1)
+    for i in range(1, int(rlen.max()) + 1):
+        carry = step(i, *carry)[:3]
+        if i % WV == 0 and i // WV < n_windows:
+            ckpt[:, i // WV] = torch.where((i <= rlen)[:, None, None], torch.stack(carry, 1), 0)
+    return ckpt
+
+
+def stripe_dp_ckpt(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) -> torch.Tensor:
+    """Checkpoint pass of the banded stripe DP over m problems: the same
+    recurrence and inputs as `stripe_dp`, but instead of records it keeps
+    the carry of every window start row w * WV (WV = ckpt_layout(B)), so a
+    problem holds n_windows * 3 * B int32 instead of R * B int16.
+
+    Returns ckpt [m, n_windows, 3, B] int32, n_windows = ceil(R_cap / WV)
+    (R_cap defaults to the width of ref): planes H, query gap and uncapped
+    MATCH run of row w * WV, band lane k. Windows that start past a
+    problem's rlen are unspecified on CUDA (0 on the CPU). Band lane 0 of
+    a carry is never read: the rows after a window start are chunk rows,
+    where lane 0 has no diagonal predecessor. On a CUDA tensor this launches
+    csrc/stripe_dp.cu in its checkpoint mode (replacing the Pallas kernel
+    pangraph_tpu/ops/stripe_v2.py:_dp_ckpt_kernel); on a CPU tensor it runs
+    stripe_dp_ckpt_plain."""
+    if ref.device.type == "cpu":
+        _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+        return stripe_dp_ckpt_plain(ref, qry, rlen, qlen, ms, W, B, R_cap)
+    return stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B, R_cap)
+
+
+def stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) -> torch.Tensor:
+    """Launch the checkpoint DP kernel (see `stripe_dp_ckpt`); CUDA tensors only."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"the stripe_dp_ckpt kernel runs on CUDA tensors, not {ref.device}")
+    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+    from pangraph_tpu_torch.ops import cuda_build
+
+    m = ref.shape[0]
+    n_windows = _ckpt_windows_for(ref, B, R_cap)
+    ckpt = torch.empty((m, n_windows, 3, B), dtype=torch.int32, device=ref.device)
+    if m == 0 or ref.shape[1] == 0:
+        return ckpt
+    lib = cuda_build.lib("stripe_dp.cu")
+    with torch.cuda.device(ref.device):
+        rc = lib.stripe_dp_ckpt_launch(
+            _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
+            _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(ref.device)),
+            _ptr(ckpt), n_windows, ckpt_layout(B), B, m, _stream(ref.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"stripe_dp_ckpt kernel launch failed: CUDA error {rc}")
+    _count_launch("stripe_dp_ckpt")
+    return ckpt
+
+
+def _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K: int) -> None:
+    if ckpt.dim() != 4 or ckpt.dtype != torch.int32 or not ckpt.is_contiguous():
+        raise ValueError("ckpt must be a contiguous int32 tensor [m, n_windows, 3, B]")
+    m, n_windows, _, B = ckpt.shape
+    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+    if m != ref.shape[0] or ckpt.shape[2] != 3 or ckpt.device != ref.device:
+        raise ValueError(f"ckpt must be [{ref.shape[0]}, n_windows, 3, {B}] on {ref.device}")
+    if K < 1:
+        raise ValueError("K must be positive")
+    if m and int(rlen.max()) > n_windows * ckpt_layout(B):
+        raise ValueError("rlen exceeds the rows the checkpoint windows cover")
+
+
+def walk_ckpt_plain(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
+    """Plain version of the checkpoint walk kernel. All problems step through
+    the windows together, last to first; the problems that need a window
+    re-derive its records at once (vectorized over them), then each walks
+    it in a Python loop. Same inputs and outputs as `walk_ckpt`; event slots
+    past n_events are 0."""
+    m, n_windows, _, B = ckpt.shape
+    WV = ckpt_layout(B)
+    dev = ref.device
+    runs = ckpt[:, :, 2].cpu().numpy()
+    rl, ql = rlen.cpu().numpy(), qlen.cpu().numpy()
+    off = (ms + W).cpu().numpy()
+    rows, words, nev, meta = _walk_outputs(m, K)
+    walkers = [_Walker(int(rl[p]), int(ql[p]), rows[p], words[p]) for p in range(m)]
+    step = _RowStep.of(ref, qry, rlen, qlen, ms, W, B) if m else None
+    for w in range(n_windows - 1, -1, -1):
+        c0 = w * WV
+        need = []
+        for p, wk in enumerate(walkers):
+            if not wk.dead and wk.i == c0 + WV and wk.st == 0 and wk.dl == 0 and wk.rr < WV and w < n_windows - 1:
+                # refresh the jump budget from the uncapped run carried at the
+                # walker's cell; the reference's window lane k-1 drops band
+                # lane 0, so a walker there reads 0. Not after a deletion run
+                # (dl > 0): its event is emitted at the MATCH that ends it,
+                # so that cell's record must be read
+                k = wk.q + int(off[p]) - wk.i
+                wk.rr = max(wk.rr, int(runs[p, w + 1, k]) if 1 <= k < B else 0)
+            left = wk.i - c0
+            if wk.dead or left <= 0:
+                continue
+            if wk.rr >= left:  # the carried run crosses the window: skip it
+                wk.i, wk.q, wk.rr = c0, wk.q - left, wk.rr - left
+            else:
+                need.append(p)
+        if not need:
+            continue
+        idx = torch.tensor(need, device=dev)
+        sub = step.take(idx)
+        carry = ckpt[idx, w].unbind(1)
+        recs = torch.zeros((len(need), WV, B), dtype=torch.int16, device=dev)
+        for i in range(c0 + 1, min(c0 + WV, int(rl[need].max())) + 1):
+            *carry, recs[:, i - 1 - c0] = sub(i, *carry)
+        recs = recs.cpu().numpy().view(np.uint16)
+        for n, p in enumerate(need):
+            wk = walkers[p]
+            jump = min(wk.rr, wk.i - c0)  # consume the carried run first
+            wk.i, wk.q, wk.rr = wk.i - jump, wk.q - jump, wk.rr - jump
+            while wk.i > c0 and not wk.dead:
+                k = wk.q + int(off[p]) - wk.i
+                wk.move(int(recs[n, wk.i - 1 - c0, k]) if 0 <= k < B else 0, c0)
+    for p, wk in enumerate(walkers):
+        nev[p], meta[p] = wk.finish()
+    return tuple(torch.from_numpy(a).to(dev) for a in (rows, words, nev, meta))
+
+
+def walk_ckpt(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
+    """Run-jump traceback over checkpointed DP: the same outputs as `walk`,
+    from the carries of `stripe_dp_ckpt` and the DP's own inputs.
+
+    Windows of WV rows are walked last to first. A walker whose carried
+    match run covers its rows in a window crosses it without reading a
+    record; at a window edge its run budget is refreshed from the uncapped
+    run carried at its cell, unless it has just ended a deletion run there
+    (the reference refreshes that walker too, and so emits the deletion
+    event at the wrong row; here it reads the cell's record and emits the
+    event where `walk` does). Otherwise the window's records are re-derived
+    from its start carry with the DP's row step and walked; match jumps stop
+    at window edges and carry their remaining rows into the next window.
+    Events equal `walk`'s on stripe_dp's records; meta[2] (boundary) can
+    differ, since a carried jump reads no record. On a CUDA tensor this
+    launches csrc/walk_ckpt.cu (replacing the Pallas kernel
+    pangraph_tpu/ops/stripe_v2.py:_walk_ckpt_kernel); on a CPU tensor it
+    runs walk_ckpt_plain."""
+    if ref.device.type == "cpu":
+        _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K)
+        return walk_ckpt_plain(ckpt, ref, qry, rlen, qlen, ms, W, K)
+    return walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K)
+
+
+def walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
+    """Launch the checkpoint walk kernel (see `walk_ckpt`); CUDA tensors only."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"the walk_ckpt kernel runs on CUDA tensors, not {ref.device}")
+    _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K)
+    from pangraph_tpu_torch.ops import cuda_build
+
+    m, n_windows, _, B = ckpt.shape
+    dev = ref.device
+    rows = torch.empty((m, K), dtype=torch.int32, device=dev)
+    words = torch.empty((m, K), dtype=torch.int32, device=dev)
+    nev = torch.empty(m, dtype=torch.int32, device=dev)
+    meta = torch.empty((m, 4), dtype=torch.int32, device=dev)
+    if m == 0:
+        return rows, words, nev, meta
+    WV = ckpt_layout(B)
+    grid = walk_ckpt_grid(m, B)
+    scratch = torch.empty(grid * WV * B, dtype=torch.int16, device=dev)
+    lib = cuda_build.lib("walk_ckpt.cu")
+    with torch.cuda.device(dev):
+        rc = lib.walk_ckpt_launch(
+            _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
+            _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(dev)),
+            _ptr(ckpt), n_windows, WV, B, _ptr(scratch), grid, K,
+            _ptr(rows), _ptr(words), _ptr(nev), _ptr(meta), m, _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"walk_ckpt kernel launch failed: CUDA error {rc}")
+    _count_launch("walk_ckpt")
+    return rows, words, nev, meta
+
+
 # --------------------------------------------------------------- pipeline
+
+
+def _put(device, *arrays) -> list:
+    """Host numpy arrays -> contiguous tensors on `device`."""
+    dev = torch.device(device)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
 def stripe_align(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, seg: int, device) -> dict:
@@ -409,14 +699,19 @@ def stripe_align(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, seg: int, 
     (ref_seq [m, R] and qry_seq [m, Q] uint8 bytes, the rest [m] int32); the
     result dict holds rows/words [m, K], n_events [m] and meta [m, 4] as
     tensors on `device` (not yet synchronized)."""
-    dev = torch.device(device)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    rl, ql, msv, Wv = put(rlen), put(qlen), put(ms), put(W)
-    rec = stripe_dp(put(ref_seq), put(qry_seq), rl, ql, msv, Wv, B)
+    ref, qry, rl, ql, msv, Wv = _put(device, ref_seq, qry_seq, rlen, qlen, ms, W)
+    rec = stripe_dp(ref, qry, rl, ql, msv, Wv, B)
     rows, words, nev, meta = walk(rec, rl, ql, msv, Wv, seg, K)
+    return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
+
+
+def stripe_align_ckpt(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, R_cap: int, device) -> dict:
+    """The checkpoint route of `stripe_align`: stripe_dp_ckpt then walk_ckpt,
+    with the same inputs and output dict. R_cap is the length tier (it sets
+    the number of windows, as in the reference)."""
+    ref, qry, rl, ql, msv, Wv = _put(device, ref_seq, qry_seq, rlen, qlen, ms, W)
+    ckpt = stripe_dp_ckpt(ref, qry, rl, ql, msv, Wv, B, R_cap)
+    rows, words, nev, meta = walk_ckpt(ckpt, ref, qry, rl, ql, msv, Wv, K)
     return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
 
 

@@ -130,11 +130,14 @@ def test_merge_of_reference_subgraphs():
     assert graph_json(PortPangraph.from_json(left)) == left
 
 
-@pytest.mark.parametrize("route", ["kernel", "host"])
+@pytest.mark.parametrize("route", ["kernel", "host", "numpy"])
 def test_cli_build_matches_reference_cli(tmp_path, monkeypatch, route):
     """`python -m pangraph_tpu_torch.cli build` writes the same graph file as
     the reference CLI on the same FASTA (--device cpu against the reference
-    kernel route; --no-tpu on both sides)."""
+    kernel route; --no-tpu on both sides, with the host C++ engine, and
+    without it, where both align with the numpy aligner)."""
+    import pangraph_tpu.native as ref_native
+    import pangraph_tpu_torch.native as port_native
     from pangraph_tpu.cli import main as ref_main
     from pangraph_tpu_torch.cli import main as port_main
 
@@ -146,11 +149,25 @@ def test_cli_build_matches_reference_cli(tmp_path, monkeypatch, route):
         ref_extra, port_extra = ["--devices", "1"], ["--device", "cpu"]
     else:
         ref_extra = port_extra = ["--no-tpu"]
+    if route == "numpy":  # no C++ toolchain on either side
+        monkeypatch.setattr(ref_native, "get_lib", lambda: None)
+        monkeypatch.setattr(port_native, "get_lib", lambda: None)
     TpuBatchAligner.reset_engine_stats()
     BatchAligner.reset_engine_stats()
     assert ref_main([*common, "-o", str(tmp_path / "ref.json"), *ref_extra]) == 0
     assert port_main([*common, "-o", str(tmp_path / "port.json"), *port_extra]) == 0
-    frac = 1.0 if route == "kernel" else 0.0
+    frac = {"kernel": 1.0, "host": 0.0, "numpy": None}[route]  # the numpy path counts no cells
     assert TpuBatchAligner.engine_report()["device_cells_frac"] == frac
     assert BatchAligner.engine_report()["device_cells_frac"] == frac
     assert (tmp_path / "port.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
+
+
+def test_build_without_an_aligner_runs_on_the_card(monkeypatch):
+    """build() with no aligner builds one for the card: where there is no
+    CUDA device it raises, and does not run on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    recs = port_records(genomes(np.random.default_rng(3), n=2, L=600))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_build(recs, port_args(BuildArgs()))

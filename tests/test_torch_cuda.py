@@ -93,14 +93,45 @@ def test_kernels_match_plain_versions(B, R):
     assert sv.LAUNCHES["walk"] == before["walk"] + 2
 
 
-def test_align_many_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("B,R", [(128, 5000), (256, 3000), (2048, 1200)])
+def test_ckpt_kernels_match_plain_versions(B, R):
+    """The checkpoint pair on the card against its plain versions (carries of
+    every window that starts at or below rlen, events and meta), and its
+    events against the v2 kernels' on the same batch."""
+    need_cuda()
+    rng = np.random.default_rng(7 * B + R)
+    t = batch(pairs(rng, 12, R // 2, R), B)
+    tc = [x.cuda() for x in t]
+    R_cap, K = 8192, 512
+    WV = sv.ckpt_layout(B)
+    before = dict(sv.LAUNCHES)
+    ck_plain = sv.stripe_dp_ckpt(*t, B, R_cap)
+    ck = sv.stripe_dp_ckpt(*tc, B, R_cap).cpu()
+    live = torch.arange(ck.shape[1])[None, :] * WV <= t[2][:, None]
+    assert torch.equal(ck[live], ck_plain[live])
+    got = [x.cpu() for x in sv.walk_ckpt(ck.cuda(), *tc, K)]
+    want = sv.walk_ckpt(ck_plain, *t, K)
+    v2 = [x.cpu() for x in sv.walk(sv.stripe_dp(*tc, B), *tc[2:], sv.walk_segment(R_cap, B), K)]
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]) and torch.equal(got[2], v2[2])
+    for s in range(len(t[2])):
+        n = min(int(want[2][s]), K)
+        for a in (0, 1):
+            assert torch.equal(got[a][s, :n], want[a][s, :n]) and torch.equal(got[a][s, :n], v2[a][s, :n])
+    assert sv.LAUNCHES["stripe_dp_ckpt"] == before["stripe_dp_ckpt"] + 1
+    assert sv.LAUNCHES["walk_ckpt"] == before["walk_ckpt"] + 1
+
+
+@pytest.mark.parametrize("ckpt_bytes", [None, 0], ids=["stripe", "ckpt"])
+def test_align_many_on_the_card_matches_the_cpu(ckpt_bytes):
     need_cuda()
     rng = np.random.default_rng(9)
     jobs = [AlignJob(r, q, BandParameters(ms, 20)) for r, q, ms in pairs(rng, 40, 200, 6000)]
-    cpu = BatchAligner(BandedAlignParams(), 5, 4, device="cpu").align_many(jobs)
+    cpu = BatchAligner(BandedAlignParams(), 5, 4, device="cpu", ckpt_paths_bytes=ckpt_bytes).align_many(jobs)
     BatchAligner.reset_engine_stats()
-    gpu = BatchAligner(BandedAlignParams(), 5, 4, device="cuda").align_many(jobs)
-    assert BatchAligner.engine_report()["device_cells_frac"] == 1.0
+    gpu = BatchAligner(BandedAlignParams(), 5, 4, device="cuda", ckpt_paths_bytes=ckpt_bytes).align_many(jobs)
+    report = BatchAligner.engine_report()
+    assert report["device_cells_frac"] == 1.0
+    assert set(report["device_routes"]) == {"ckpt" if ckpt_bytes == 0 else "stripe"}
     for a, b, j in zip(gpu, cpu, jobs):
         assert a == b
         assert np.array_equal(a.apply(j.ref), j.qry)
