@@ -5,8 +5,9 @@
 Phases, one line each (any failure exits non-zero and prints no result):
 
 1. toolchain: torch, CUDA, nvcc, the card and its power limit;
-2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
-   host C++ engine (native/*.cpp), from the sources in this checkout;
+2. build: the five CUDA kernel sources (csrc/*.cu, one nvcc each, in
+   parallel) and the host C++ engine (native/*.cpp), from the sources in
+   this checkout;
 3. kernels against their plain PyTorch versions on the card, on random pairs
    with indels, IUPAC codes, N and shifted bands: the stripe DP and its walk
    at band widths B in {128, 256, 2048} and record rows R in {4096, 10240}
@@ -18,6 +19,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
 3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),
    kernels only: its events must equal the v2 kernels' on the same batch;
    both routes are timed, with their carry and record bytes;
+3c. the sketch and chain kernels against their plain versions on the card:
+   the sketch on random code batches with N and lowercase (8 and 9 rows of
+   150-300 kbp) at (k, w) = (15, 100), (19, 19) and (7, 5), dense outputs
+   equal element for element; the chain DP on random anchor clouds of 4,100
+   and 20,000 anchors, f and parent equal; kernel and plain times printed;
 4. the main path: `build -c -f -j 2 --device cuda` through the CLI on the
    headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
    with an exact roundtrip, the DP and walk launched, the checkpoint pair
@@ -29,9 +35,19 @@ Phases, one line each (any failure exits non-zero and prints no result):
    which sends the tiers whose per-problem records pass 32 MB (counted as
    the reference counts them) to the checkpoint pair: exact roundtrip, all
    four kernels launched, the same device-share and quality limits.
+   Neither build launches the sketch or chain kernel: the build sketches and
+   chains in host C++, as the reference's does;
+6. the sketch and chain path on the headline's genomes: all ten sketched on
+   the card in one launch per parameter set, at the mapper's (19, 19) and
+   the guide tree's (15, 100), each genome's minimizers equal to the host
+   C++ sketch; the mapper's all-vs-all anchors of the ten (90 groups) chained
+   in one launch, f and parent equal to the host C++ chain DP for every
+   group; then both kernels' outputs held against their plain versions on
+   the card on the same inputs (all ten genomes at both parameter sets, all
+   90 groups); kernel times beside the host engines' times for the same work.
 
-Before the last line it prints one JSON line of kernel receipts (each with
-its launches on its path, its worst error against its plain version, its
+Before the last line it prints one JSON line of kernel receipts (each of
+the six with its launches on its path, its worst error against its plain version, its
 time and its plain version's, and its bound) and the card's name and power
 limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,9 +86,11 @@ MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"
 # The card's peaks for bound_ms: H100 SXM HBM at 3.35 TB/s (NVIDIA's data
-# sheet), and the int32 throughput, 132 SMs x 64 INT32 lanes x 1.98 GHz.
+# sheet), and the int32 throughput, 132 SMs x 64 INT32 lanes at the 1.98 GHz
+# boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # Integer operations per DP cell that the recurrence itself needs, counted
 # from ops/stripe_v2.py:_RowStep at one per add, max, compare, pick, and, or
 # or shift (each issues on the INT32 pipe). Address arithmetic, loads, the
@@ -98,6 +116,46 @@ CKPT_DP_OPS_PER_CELL = sum(DP_CARRY_OPS.values())  # the checkpoint DP: carries 
 DP_OPS_PER_CELL = CKPT_DP_OPS_PER_CELL + sum(DP_RECORD_OPS.values())  # the DP, the walk's re-derive
 # per walk move, from ops/stripe_v2.py:_Walker.move (csrc/walk_step.cuh)
 WALK_OPS_PER_MOVE = 35
+# (k, w) of phase 3c's sketch batches; rows per batch; row lengths (bp)
+SKETCH_PARAMS = [(15, 100), (19, 19), (7, 5)]
+SKETCH_ROWS = (8, 9)
+SKETCH_ROW_BP = (150_000, 300_000)
+CHAIN_SIZES = (4100, 20000)  # anchors per random cloud (phase 3c)
+# (k, w) of phase 6: the mapper's index sketch (align/mapper.py MapperParams)
+# and the guide tree's mash sketch (build/tree.py -> mash_distance)
+PATH_SKETCH_PARAMS = [(19, 19), (15, 100)]
+# Integer operations per k-mer position that the sketch needs, counted from
+# ops/sketch_k1.py:sketch_dense_plain as if the codes rolled and the window
+# minimum were van Herk / Gil-Werman's; a 64-bit add, shift, xor, and or
+# compare counts as 2 INT32-pipe operations, a 64-bit pick as 2.
+SKETCH_OPS = {
+    "code: valid test, substitute, complement": 3,
+    "forward k-mer, rolled: shift, or, mask (64-bit)": 6,
+    "reverse k-mer, rolled: shift, shift the complement in, or (64-bit)": 6,
+    "valid run: compare, add or reset": 2,
+    "canonical: unsigned compare, equal test, pick (64-bit)": 6,
+    "Jenkins mix: 23 adds, shifts, xors, nots and masks (64-bit)": 46,
+    "sentinel: and, pick (64-bit)": 3,
+    "position and strand: shift, or": 2,
+    "window minimum: 2 running-minimum steps, each a 64-bit compare (2) and a pick of value and position (3)": 10,
+}
+SKETCH_OPS_PER_POSITION = sum(SKETCH_OPS.values())
+# Integer operations per (anchor, predecessor) pair, from
+# ops/chain_k2.py:chain_sets_plain, one per add, compare, min, pick or shift
+CHAIN_OPS = {
+    "dr, dq: 2 subtracts": 2,
+    "dd: subtract, absolute value": 2,
+    "gates: 5 compares, 4 ands": 9,
+    "alpha: 2 mins": 2,
+    "gap: multiply, divide by 100 (multiply-high, shift), floor(log2) (leading zeros, subtract, cap), shift, add": 8,
+    "candidate: add, subtract, pick": 3,
+    "running best: compare, 2 picks": 3,
+}
+CHAIN_OPS_PER_PAIR = sum(CHAIN_OPS.values())
+# The chain's dependency: f[i] needs f[i-1] through at least an add and a max,
+# two dependent integer operations of about 4 cycles each (an assumed
+# latency, not measured) at SM_CLOCK_HZ
+CHAIN_DEP_CYCLES = 8
 
 
 def say(phase: str, **kv) -> None:
@@ -487,6 +545,8 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
     from pangraph_tpu_torch.ops import stripe_v2 as sv
     from pangraph_tpu_torch.ops.batch_align import BatchAligner
 
@@ -496,11 +556,12 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "graph.json")
             BatchAligner.reset_engine_stats()
-            sv.reset_launches()
+            for mod in (sv, sk, ch):
+                mod.reset_launches()
             t0 = time.time()
             rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
             wall = time.time() - t0
-            launches = dict(sv.LAUNCHES)
+            launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
             report = BatchAligner.engine_report()
             if rc != 0:
                 raise AssertionError(f"build exited {rc} (with -f a roundtrip mismatch exits non-zero)")
@@ -528,19 +589,265 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
     return {"launches": launches, "report": report, "quality": quality, "wall_s": wall}
 
 
+def _sketch_bound(m: int, L_pad: int, w: int) -> dict:
+    """The sketch's bound: codes read once (4 B each), 12 B written per
+    window start, SKETCH_OPS_PER_POSITION per k-mer position read."""
+    from pangraph_tpu_torch.ops.sketch_k1 import C
+
+    n_out = L_pad - C
+    return _bound(4 * m * L_pad + 12 * m * n_out, SKETCH_OPS_PER_POSITION * m * (n_out + w - 1))
+
+
+def _chain_bound(offsets: np.ndarray, H: int) -> dict:
+    """The chain's bound over these sets: r and q read and f and parent
+    written once (16 B an anchor, 8 B an offset), CHAIN_OPS_PER_PAIR per
+    (anchor, predecessor) pair the sets hold; and its dependency bound, the
+    longest set's anchors times CHAIN_DEP_CYCLES."""
+    n = np.diff(offsets).astype(np.int64)
+    pairs = int(np.where(n <= H, n * (n - 1) // 2, H * (H - 1) // 2 + (n - H) * H).sum())
+    out = _bound(16 * int(n.sum()) + 8 * len(offsets), CHAIN_OPS_PER_PAIR * pairs)
+    out["dep_bound_ms"] = int(n.max(initial=0)) * CHAIN_DEP_CYCLES / SM_CLOCK_HZ * 1e3
+    out["binds"] = "dependency" if out["dep_bound_ms"] > out["bound_ms"] else out["bound_by"]
+    out["pairs"] = pairs
+    return out
+
+
+def _anchor_cloud(rng, n: int, L: int, n_chains: int = 3) -> tuple:
+    """Anchors sorted by (r, q): a few co-linear chains with drift plus noise
+    (tests/test_chain_k2.py's generator)."""
+    rs, qs = [], []
+    for _ in range(n_chains):
+        m = n // (n_chains + 1)
+        steps = rng.integers(5, 400, m)
+        rs.append(int(rng.integers(0, L // 2)) + np.cumsum(steps))
+        qs.append(int(rng.integers(0, L // 2)) + np.cumsum(steps) + np.cumsum(rng.integers(-3, 4, m)))
+    m = n - sum(len(x) for x in rs)
+    rs.append(rng.integers(0, L, m))
+    qs.append(rng.integers(0, L, m))
+    r, q = np.concatenate(rs), np.concatenate(qs)
+    order = np.lexsort((q, r))
+    return r[order].astype(np.int64), q[order].astype(np.int64)
+
+
+def _sketch_err(got, want) -> int:
+    """Largest absolute difference of the (hi, lo, ps) int32 words that the
+    reference outputs (0 when the dense sketches agree)."""
+    (v, p), (pv, pp) = got, want
+    words = [(v >> 32, pv >> 32), (v & 0xFFFFFFFF, pv & 0xFFFFFFFF), (p.long(), pp.long())]
+    return max(int((a - b).abs().max()) if a.numel() else 0 for a, b in words)
+
+
+def _chain_err(got, want) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in zip(got, want))
+
+
+def _chain_tensors(torch, sets, dev) -> list:
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+
+    return [torch.from_numpy(a).to(dev) for a in ch.pack_sets(sets)]
+
+
+def phase_sketch_chain_kernels(torch) -> dict:
+    """The sketch and chain kernels against their plain versions on the card,
+    element for element (phase 3c)."""
+    from pangraph_tpu_torch.align.chain import ChainParams
+    from pangraph_tpu_torch.graph.seq import TWOBIT
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    dev = torch.device("cuda", 0)
+    worst = {"sketch": 0, "chain": 0}
+    acgtn = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    for i, ((k, w), m) in enumerate((p, m) for p in SKETCH_PARAMS for m in SKETCH_ROWS):
+        rng = np.random.default_rng(400 + i)
+        lengths = rng.integers(*SKETCH_ROW_BP, m)
+        L_pad = (int(lengths.max()) // sk.C + 2) * sk.C
+        codes = np.full((m, L_pad), 4, np.int32)
+        for row, n in enumerate(lengths):  # N at 4%, odd rows lowercase
+            codes[row, :n] = TWOBIT[acgtn[rng.choice(5, n, p=[0.24] * 4 + [0.04]) + 5 * (row % 2)]]
+        ct = torch.from_numpy(codes).to(dev)
+        got = sk.sketch_dense(ct, k, w)
+        ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
+        plain_ms, want = _host_ms(torch, lambda: sk.sketch_dense_plain(ct, k, w))
+        err = _sketch_err(got, want)
+        bound = _sketch_bound(m, L_pad, w)
+        worst["sketch"] = max(worst["sketch"], err)
+        say("sketch_kernel", k=k, w=w, rows=m, L_pad=L_pad, windows=m * (L_pad - sk.C), ms=round(ms, 4),
+            plain_ms=round(plain_ms, 2), bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+            sentinel_windows=int((got[0] == -1).sum()), max_abs_err=err)
+        if err:
+            raise AssertionError(f"sketch kernel disagrees with its plain version at k={k} w={w} rows={m}")
+        del got, want, ct
+    cp = ChainParams()
+    for n in CHAIN_SIZES:
+        sets = [_anchor_cloud(np.random.default_rng(500 + n), n, L=20 * n)]
+        t = _chain_tensors(torch, sets, dev)
+        args = (cp.k, cp.max_gap, cp.bw, cp.window)
+        got = ch.chain_sets(*t, *args)
+        ms = _event_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS)
+        plain_ms, want = _host_ms(torch, lambda: ch.chain_sets_plain(*t, *args))
+        err = _chain_err(got, want)
+        bound = _chain_bound(t[2].cpu().numpy(), cp.window)
+        worst["chain"] = max(worst["chain"], err)
+        say("chain_kernel", anchors=n, ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+            bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+            dep_bound_ms=round(bound["dep_bound_ms"], 5), binds=bound["binds"],
+            best_f=int(got[0].max()), chained=int((got[1] >= 0).sum()), max_abs_err=err)
+        if err:
+            raise AssertionError(f"chain kernel disagrees with its plain version at {n} anchors")
+    torch.cuda.empty_cache()
+    return {"worst": worst}
+
+
+def _headline_anchor_sets(seqs: list, names: list, p) -> list:
+    """The mapper's all-vs-all anchors of `seqs` as map_all_vs_all forms them
+    (index, one anchor pass, groups by (query, target, strand) in the
+    coordinates they are chained in), each sorted as chain_anchors sorts it."""
+    from pangraph_tpu_torch.align.chain import sort_anchors
+    from pangraph_tpu_torch.align.mapper import anchor_group, anchor_groups, build_index, collect_anchors_all
+
+    index = build_index(seqs, names, p)
+    a_qi, a_rid, a_rpos, a_qpos, a_rel = collect_anchors_all(index, None)
+    groups = anchor_groups(a_qi, a_rid, a_rel, len(names))
+    sets = []
+    for gi in range(len(groups[2]) - 1):
+        _qi, _ri, _strand, rpos, q_eff = anchor_group(groups, gi, a_rpos, a_qpos, seqs, p.k)
+        sets.append(sort_anchors(rpos, q_eff)[1:])
+    return sets
+
+
+def phase_sketch_chain_path(torch, fa: str) -> dict:
+    """Phase 6: the sketch and chain kernels through their entry points on the
+    headline's genomes. The launch counts are set to 0 just before and read
+    just after; the timing launches come after that."""
+    from pangraph_tpu_torch import native
+    from pangraph_tpu_torch.align.chain import ChainParams
+    from pangraph_tpu_torch.align.mapper import MapperParams
+    from pangraph_tpu_torch.graph.seq import TWOBIT, as_seq
+    from pangraph_tpu_torch.io.fasta import read_fasta
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    recs = sorted(read_fasta(fa), key=lambda rec: rec.seq_name)
+    names = [rec.seq_name for rec in recs]
+    seqs = [as_seq(rec.seq) for rec in recs]
+    say("sketch_chain_path.input", genomes=len(seqs), bp=sum(len(x) for x in seqs), read_s=round(time.time() - t0, 2))
+
+    sk.reset_launches()
+    ch.reset_launches()
+    out = {"sketch": {}, "genomes": len(seqs)}
+    dense = {}  # (k, w) -> codes and the entry point's (hi, lo, ps)
+    for k, w in PATH_SKETCH_PARAMS:
+        n_w = [len(x) - k - w + 2 for x in seqs]
+        L_pad = ((max(n_w) + sk.C - 1) // sk.C + 1) * sk.C
+        codes = np.full((len(seqs), L_pad), 4, np.int32)
+        for i, x in enumerate(seqs):
+            codes[i, : len(x)] = TWOBIT[x]
+        t0 = time.perf_counter()
+        hi, lo, ps = sk.sketch_batch(codes, k, w)
+        entry_s = time.perf_counter() - t0
+        dense[(k, w)] = (codes, hi, lo, ps)
+        native_s, total, bad = 0.0, 0, []
+        for i, x in enumerate(seqs):
+            got = sk.compact(hi[i], lo[i], ps[i], n_w[i])
+            t1 = time.perf_counter()
+            vals, pos, strands = native.sketch_native(x, k, w, TWOBIT)
+            native_s += time.perf_counter() - t1
+            total += len(vals)
+            if not (np.array_equal(got.values, vals) and np.array_equal(got.positions, pos)
+                    and np.array_equal(got.strands, strands)):
+                bad.append(names[i])
+        out["sketch"][(k, w)] = {"L_pad": L_pad, "minimizers": total, "native_s": native_s, "entry_s": entry_s}
+        say("sketch_chain_path.sketch", k=k, w=w, rows=len(seqs), L_pad=L_pad, minimizers=total,
+            entry_point_s=round(entry_s, 3), native_host_s=round(native_s, 3), differ_from_native=bad)
+        if bad:
+            raise AssertionError(f"sketch on the card differs from the host C++ sketch at k={k} w={w}: {bad}")
+
+    mp = MapperParams()
+    cp = ChainParams(k=mp.k, max_gap=mp.max_gap, bw=mp.bw, min_score=mp.min_chain_score, min_anchors=mp.min_anchors)
+    t0 = time.time()
+    sets = _headline_anchor_sets(seqs, names, mp)
+    anchors_s = time.time() - t0
+    t = _chain_tensors(torch, sets, dev)
+    args = (cp.k, cp.max_gap, cp.bw, cp.window)
+    f, parent = ch.chain_sets(*t, *args)
+    torch.cuda.synchronize()
+    out["launches"] = {**sk.LAUNCHES, **ch.LAUNCHES}
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"sketch_chain_path: a kernel was never launched: {out['launches']}")
+    f, parent = f.cpu().numpy(), parent.cpu().numpy()
+    offsets = t[2].cpu().numpy()
+    native_s, bad = 0.0, []
+    for s, (r, q) in enumerate(sets):
+        t1 = time.perf_counter()
+        nf, npar = native.chain_dp_native(r, q, *args)
+        native_s += time.perf_counter() - t1
+        if not (np.array_equal(nf, f[offsets[s] : offsets[s + 1]]) and np.array_equal(npar, parent[offsets[s] : offsets[s + 1]])):
+            bad.append(s)
+    sizes = np.diff(offsets)
+    out["chain"] = {"anchors": int(sizes.sum()), "groups": len(sets), "native_s": native_s}
+    say("sketch_chain_path.chain", groups=len(sets), anchors=int(sizes.sum()), largest=int(sizes.max()),
+        median=int(np.median(sizes)), anchors_s=round(anchors_s, 2), native_host_s=round(native_s, 3),
+        chained=int((parent >= 0).sum()), differ_from_native=bad)
+    if bad:
+        raise AssertionError(f"chain on the card differs from the host C++ chain DP in groups {bad}")
+
+    # the plain versions on the card at the same shapes and on the same
+    # inputs, then the kernel times (these launches are not counted above)
+    for k, w in PATH_SKETCH_PARAMS:
+        codes, hi, lo, ps = dense.pop((k, w))
+        ct = torch.from_numpy(codes).to(dev)
+        plain_ms, want = _host_ms(torch, lambda: sk.sketch_dense_plain(ct, k, w))
+        got = ((torch.from_numpy(hi).long() << 32) | (torch.from_numpy(lo).long() & 0xFFFFFFFF), torch.from_numpy(ps))
+        err = _sketch_err(got, tuple(x.cpu() for x in want))
+        del want, got
+        torch.cuda.empty_cache()
+        ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
+        bound = _sketch_bound(*ct.shape, w)
+        out["sketch"][(k, w)].update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
+        say("sketch_chain_path.sketch_time", k=k, w=w, kernel_ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+            max_abs_err=err, bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+            native_host_ms=round(out["sketch"][(k, w)]["native_s"] * 1e3, 2),
+            note="native_host_ms_is_host_CPU_time_on_one_thread_not_a_device_time")
+        if err:
+            raise AssertionError(f"sketch kernel disagrees with its plain version on the headline at k={k} w={w}")
+        del ct
+    plain_ms, want = _host_ms(torch, lambda: ch.chain_sets_plain(*t, *args))
+    err = _chain_err((torch.from_numpy(f), torch.from_numpy(parent)), [x.cpu() for x in want])
+    del want
+    torch.cuda.empty_cache()
+    ms = _event_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS)
+    bound = _chain_bound(offsets, cp.window)
+    out["chain"].update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
+    say("sketch_chain_path.chain_time", kernel_ms=round(ms, 4), plain_ms=round(plain_ms, 2), max_abs_err=err,
+        bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"], dep_bound_ms=round(bound["dep_bound_ms"], 5),
+        binds=bound["binds"], pairs=bound["pairs"], native_host_ms=round(native_s * 1e3, 2),
+        note="native_host_ms_is_host_CPU_time_on_one_thread_not_a_device_time")
+    if err:
+        raise AssertionError("chain kernel disagrees with its plain version on the headline's groups")
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNEL_FILES = {
     "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
     "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
     "stripe_dp_ckpt": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:332"),
     "walk_ckpt": ("pangraph_tpu_torch/csrc/walk_ckpt.cu", "pangraph_tpu/ops/stripe_v2.py:647"),
+    "sketch": ("pangraph_tpu_torch/csrc/sketch.cu", "pangraph_tpu/ops/sketch_k1.py:153"),
+    "chain": ("pangraph_tpu_torch/csrc/chain.cu", "pangraph_tpu/ops/chain_k2.py:76"),
 }
 
 
-def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict) -> dict:
+def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
-    the headline's default path, the checkpoint pair on the long-tier path),
-    worst error against its plain version over every phase-3 shape, and its
-    times and bound at one phase-3 shape."""
+    the headline's default path, the checkpoint pair on the long-tier path,
+    the sketch and chain on phase 6), worst error against its plain version
+    over every shape it was held at, and its times and bound at one shape
+    where both were timed (for the sketch and chain, phase 6's own; the
+    chain also carries its dependency bound and which bound binds)."""
     rows = []
     for name, (shape, phase, path) in {
         "stripe_dp": ((128, 10240), kern, main_path),
@@ -562,6 +869,23 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict) -> dict:
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
             "shape": f"B={shape[0]} R={shape[1]} problems={problems}",
         })
+    sketch_path = sc_path["sketch"][(19, 19)]
+    for name, path, worst, shape in (
+        ("sketch", sketch_path, max([sc["worst"]["sketch"]] + [x["err"] for x in sc_path["sketch"].values()]),
+         f"{sc_path['genomes']} headline genomes, k=19 w=19, L_pad={sketch_path['L_pad']}"),
+        ("chain", sc_path["chain"], max(sc["worst"]["chain"], sc_path["chain"]["err"]),
+         f"{sc_path['chain']['groups']} headline anchor groups, {sc_path['chain']['anchors']} anchors"),
+    ):
+        source, replaces = KERNEL_FILES[name]
+        bound = path["bound"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sc_path["launches"][name], "max_abs_err": worst,
+            "ms": round(path["ms"], 4), "plain_ms": round(path["plain_ms"], 2),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None, "shape": shape,
+        })
+        if name == "chain":
+            rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
     return {"kernels": rows}
 
 
@@ -579,13 +903,14 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
-    v2 = {"stripe_dp": True, "walk": True}
+    v2 = {"stripe_dp": True, "walk": True, "sketch": False, "chain": False}
     try:
         info = phase_toolchain(torch)
         phase_build()
         kern = phase_kernels(torch)
         ckpt = phase_ckpt_kernels(torch)
         phase_mbp(torch)
+        sc = phase_sketch_chain_kernels(torch)
         with tempfile.TemporaryDirectory() as tmp:
             fa = os.path.join(tmp, "headline.fa")
             t0 = time.time()
@@ -594,6 +919,7 @@ def main() -> int:
                                          {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False})
             long_tier = phase_build_path(torch, "long_tier", fa, {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
                                          {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
+            sc_path = phase_sketch_chain_path(torch, fa)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
@@ -601,7 +927,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -31,6 +31,12 @@ class ChainParams:
     max_chains: int = 200
 
 
+def sort_anchors(rpos: np.ndarray, qpos: np.ndarray) -> tuple:
+    """(order, r, q): the anchors in the (r, q) order the chain DP takes, as int64."""
+    order = np.lexsort((qpos, rpos))
+    return order, rpos[order].astype(np.int64), qpos[order].astype(np.int64)
+
+
 def chain_anchors(rpos: np.ndarray, qpos: np.ndarray, p: ChainParams):
     """Chain co-linear anchors. rpos/qpos: int64 arrays (same strand space,
     both increasing along a chain). Returns list of index arrays (chains),
@@ -38,9 +44,7 @@ def chain_anchors(rpos: np.ndarray, qpos: np.ndarray, p: ChainParams):
     n = len(rpos)
     if n == 0:
         return [], []
-    order = np.lexsort((qpos, rpos))
-    r = rpos[order].astype(np.int64)
-    q = qpos[order].astype(np.int64)
+    order, r, q = sort_anchors(rpos, qpos)
 
     # native C++ DP when available (pangraph_tpu_torch.native)
     from pangraph_tpu_torch.native import chain_dp_native

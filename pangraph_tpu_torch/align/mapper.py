@@ -626,6 +626,34 @@ def _align_chain_jobs(jobs: list, band_params: BandedAlignParams, aligner=None) 
     return edits
 
 
+def anchor_groups(a_qi: np.ndarray, a_rid: np.ndarray, a_rel: np.ndarray, n_seqs: int) -> tuple:
+    """Group the anchor pass's anchors by (query, target, strand): returns
+    (order, key_s, starts), group g holding anchors order[starts[g]:starts[g+1]]
+    under the key key_s[starts[g]] = (query * n_seqs + target) * 2 + strand."""
+    key = (a_qi.astype(np.int64) * n_seqs + a_rid) * 2 + a_rel
+    order = np.argsort(key, kind="quicksort")
+    key_s = key[order]
+    if len(key_s):
+        starts = np.concatenate(([0], np.flatnonzero(key_s[1:] != key_s[:-1]) + 1, [len(key_s)]))
+    else:
+        starts = np.zeros(1, dtype=np.int64)
+    return order, key_s, starts
+
+
+def anchor_group(groups: tuple, gi: int, a_rpos: np.ndarray, a_qpos: np.ndarray, seqs: list, k: int) -> tuple:
+    """Group gi of `anchor_groups`: (query, target, strand, rpos, q_eff),
+    q_eff the query coordinates the group is chained in (reverse matches on
+    the reverse-complement query)."""
+    order, key_s, starts = groups
+    sel = order[int(starts[gi]) : int(starts[gi + 1])]
+    key = int(key_s[starts[gi]])
+    strand_rel = key & 1
+    ri, qi = (key >> 1) % len(seqs), (key >> 1) // len(seqs)
+    qpos = a_qpos[sel]
+    q_eff = (len(seqs[qi]) - qpos - k) if strand_rel else qpos
+    return qi, ri, strand_rel, a_rpos[sel], q_eff
+
+
 def map_all_vs_all(
     seqs_by_name: dict, p: MapperParams, band_params: BandedAlignParams = None, aligner=None,
     n_threads: int = 1, pair_cache: dict = None,
@@ -707,14 +735,7 @@ def map_all_vs_all(
     # pair_cache instead), then chain per (query, target, strand) group
     with trace.span("mapper.anchors"):
         a_qi, a_rid, a_rpos, a_qpos, a_rel = collect_anchors_all(index, unchanged)
-        n_seqs = len(names)
-        key = (a_qi.astype(np.int64) * n_seqs + a_rid) * 2 + a_rel
-        order = np.argsort(key, kind="quicksort")
-        key_s = key[order]
-        if len(key_s):
-            starts = np.concatenate(([0], np.flatnonzero(key_s[1:] != key_s[:-1]) + 1, [len(key_s)]))
-        else:
-            starts = np.zeros(1, dtype=np.int64)
+        groups = anchor_groups(a_qi, a_rid, a_rel, len(names))
 
     rc_cache = {}
 
@@ -725,18 +746,9 @@ def map_all_vs_all(
         return rc
 
     def group_jobs(gi: int) -> list:
-        s0, s1 = int(starts[gi]), int(starts[gi + 1])
-        sel = order[s0:s1]
-        k = int(key_s[s0])
-        strand_rel = k & 1
-        ri = (k >> 1) % n_seqs
-        qi = (k >> 1) // n_seqs
+        qi, ri, strand_rel, rpos_g, q_eff = anchor_group(groups, gi, a_rpos, a_qpos, seqs, p.k)
         qseq = seqs[qi]
         qlen = len(qseq)
-        rpos_g = a_rpos[sel]
-        qpos_g = a_qpos[sel]
-        # reverse matches: chain in revcomp-query coordinates
-        q_eff = (qlen - qpos_g - p.k) if strand_rel else qpos_g
         rc_qry = rc_of(qi) if strand_rel else None
         jobs = []
         with trace.span("mapper.chain"):
@@ -764,7 +776,7 @@ def map_all_vs_all(
                     )
         return jobs
 
-    n_groups = len(starts) - 1
+    n_groups = len(groups[2]) - 1
     n_threads = max(1, min(n_threads, n_groups)) if n_groups else 1
     if n_threads > 1 and n_groups > 1:
         import concurrent.futures as _cf

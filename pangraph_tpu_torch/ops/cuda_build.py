@@ -7,7 +7,9 @@ BUILD_DIR beside the package (listed in .gitignore); a library's file name
 carries a hash of its source and of the headers in csrc/ (the DP's row step
 and the walk's move are shared headers), so an edited source or header is
 rebuilt and an unchanged one is not. Nothing is compiled at import: the first launch, or
-an explicit `build_all()`, builds.
+an explicit `build_all()`, builds. `ptr`, `stream` and `device_of` are what
+the kernels' wrappers hand to a launcher and how their numpy entry points
+pick a device.
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "_build", "kernels")
-SOURCES = ("stripe_dp.cu", "walk.cu", "walk_ckpt.cu")
+SOURCES = ("stripe_dp.cu", "walk.cu", "walk_ckpt.cu", "sketch.cu", "chain.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,7 +47,29 @@ _ARGTYPES = {
     # scratch, grid, K, rows, words, n_events, meta, m, stream
     "walk_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # codes, L_pad, m, k, w, val, ps, stream
+    "sketch_launch": [_P, _I64, _I, _I, _I, _P, _P, _P],
+    # r, q, offsets, n_sets, k, max_gap, bw, H, f, parent, stream
+    "chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device`, for a launcher's last argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def device_of(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device where there is none raises
+    (a numpy entry point never falls back to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}: no CUDA device is available (pass device='cpu')")
+    return dev
 
 
 def nvcc() -> str:

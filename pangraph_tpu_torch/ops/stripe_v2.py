@@ -32,13 +32,13 @@ terminal gaps.
 """
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import numpy as np
 import torch
 
 from pangraph_tpu_torch.graph.seq import IUPAC_MASK
+from pangraph_tpu_torch.ops.cuda_build import ptr as _ptr, stream as _stream
 
 MATCH = 1
 REF_GAP_MATRIX = 2
@@ -270,14 +270,6 @@ def _iupac_on(device) -> torch.Tensor:
     if t is None:
         t = _IUPAC_DEV[device] = torch.as_tensor(IUPAC_MASK, dtype=torch.uint8).to(device)
     return t
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def stripe_dp(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:

@@ -135,3 +135,63 @@ def test_align_many_on_the_card_matches_the_cpu(ckpt_bytes):
     for a, b, j in zip(gpu, cpu, jobs):
         assert a == b
         assert np.array_equal(a.apply(j.ref), j.qry)
+
+
+def _codes(rng, m, L_pad, lengths):
+    """An int32 code batch: TWOBIT codes of random rows with N at 4%
+    (code 4), padded with 4."""
+    codes = np.full((m, L_pad), 4, np.int32)
+    for i, n in enumerate(lengths):
+        codes[i, :n] = rng.choice(5, n, p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    return codes
+
+
+@pytest.mark.parametrize("k,w", [(15, 100), (19, 19), (7, 5), (32, 40)])
+def test_sketch_kernel_matches_plain_version(k, w):
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    need_cuda()
+    rng = np.random.default_rng(k * 1000 + w)
+    L_pad = 40 * sk.C
+    codes = torch.from_numpy(_codes(rng, 9, L_pad, rng.integers(L_pad // 2, L_pad, 9)))
+    before = sk.LAUNCHES["sketch"]
+    val, ps = sk.sketch_dense(codes.cuda(), k, w)
+    want_val, want_ps = sk.sketch_dense(codes, k, w)
+    assert torch.equal(val.cpu(), want_val) and torch.equal(ps.cpu(), want_ps)
+    assert sk.LAUNCHES["sketch"] == before + 1
+
+
+def _clouds(rng, sizes, L=2_000_000):
+    """Anchor sets sorted by (r, q): co-linear chains with drift plus noise."""
+    sets = []
+    for n in sizes:
+        m = n // 4
+        steps = rng.integers(5, 400, (3, m))
+        r = rng.integers(0, L // 2, (3, 1)) + np.cumsum(steps, 1)
+        q = rng.integers(0, L // 2, (3, 1)) + np.cumsum(steps, 1) + np.cumsum(rng.integers(-3, 4, (3, m)), 1)
+        r = np.concatenate([r.ravel(), rng.integers(0, L, n - 3 * m)])
+        q = np.concatenate([q.ravel(), rng.integers(0, L, n - 3 * m)])
+        o = np.lexsort((q, r))
+        sets.append((r[o].astype(np.int64), q[o].astype(np.int64)))
+    return sets
+
+
+@pytest.mark.parametrize("H", [1, 8, 32, 40, 1024])
+def test_chain_kernel_matches_plain_version(H):
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+
+    need_cuda()
+    rng = np.random.default_rng(H)
+    sets = _clouds(rng, [1, 0, 37, 2100, 5000, 64])
+    packed = [torch.from_numpy(a) for a in ch.pack_sets(sets)]
+    before = ch.LAUNCHES["chain"]
+    f, parent = ch.chain_sets(*(t.cuda() for t in packed), 19, 10_000, 1_000, H)
+    want_f, want_p = ch.chain_sets(*packed, 19, 10_000, 1_000, H)
+    assert torch.equal(f.cpu(), want_f) and torch.equal(parent.cpu(), want_p)
+    assert ch.LAUNCHES["chain"] == before + 1
+    # one set per launch gives what the ragged batch gives
+    o = packed[2].numpy()
+    for s, (r, q) in enumerate(sets):
+        f1, p1 = ch.chain_dp(r, q, 19, 10_000, 1_000, H)
+        assert np.array_equal(f1, f.cpu().numpy()[o[s] : o[s + 1]])
+        assert np.array_equal(p1, parent.cpu().numpy()[o[s] : o[s + 1]])

@@ -108,3 +108,68 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              timeout=120, env=env)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_sketch_and_chain_entry_points_need_cuda_by_default(monkeypatch):
+    """Without a card, the numpy entry points of the sketch and chain kernels
+    raise on their default device and never run the plain versions."""
+    import numpy as np
+
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    def plain(*_a, **_k):
+        raise AssertionError("a plain version ran")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sk, "sketch_dense_plain", plain)
+    monkeypatch.setattr(ch, "chain_sets_plain", plain)
+    before = (dict(sk.LAUNCHES), dict(ch.LAUNCHES))
+    seq = np.frombuffer(b"ACGTTGCAAC" * 20, np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sk.sketch_one(seq, 19, 19)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sk.sketch_batch(np.zeros((1, 1024), np.int32), 19, 19)
+    r = np.arange(0, 1000, 50, dtype=np.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ch.chain_dp(r, r, 19, 10_000, 1_000, 32)
+    assert (sk.LAUNCHES, ch.LAUNCHES) == before
+
+
+def test_sketch_and_chain_launchers_refuse_cpu_tensors():
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.sketch_dense_cuda(torch.full((1, 1024), 4, dtype=torch.int32), 19, 19)
+    r = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ch.chain_sets_cuda(r, r, torch.tensor([0, 4]), 19, 10_000, 1_000, 32)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "negative", "offsets", "H"])
+def test_sketch_and_chain_wrappers_reject_bad_inputs(bad):
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    codes = torch.full((2, 1024), 4, dtype=torch.int32)
+    r = torch.arange(0, 400, 100, dtype=torch.int32)
+    offsets, H = torch.tensor([0, 4]), 32
+    if bad == "dtype":
+        codes, r = codes.long(), r.long()
+    elif bad == "shape":
+        codes = codes[:, :1000]
+        r = r[:, None]
+    elif bad == "negative":
+        codes[1, 7] = -1
+        offsets = torch.tensor([0, 5])
+    elif bad == "offsets":
+        codes = codes.t()
+        offsets = torch.tensor([0, 3, 2, 4])
+    else:
+        codes = codes[:, :512]
+        H = 0
+    with pytest.raises(ValueError):
+        sk.sketch_dense(codes, 19, 19)
+    with pytest.raises(ValueError):
+        ch.chain_sets(r, r, offsets, 19, 10_000, 1_000, H)
