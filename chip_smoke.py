@@ -10,8 +10,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    this checkout;
 3. kernels against their plain PyTorch versions on the card, on random pairs
    with indels, IUPAC codes, N and shifted bands: the stripe DP and its walk
-   at band widths B in {128, 256, 2048} and record rows R in {4096, 10240}
-   (records and events equal element for element), and the checkpoint pair
+   at band widths B in {128, 256, 2048} and record rows R in {4096, 10240},
+   and at B 384 and 512 at R 4096 (B 256 and 384 are the two sides of the
+   DP's switch from a warp to a block a problem) (records and events equal
+   element for element), and the checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
    (B 1920, R 131072) and (B 2048, R 10240) (carries, events and meta equal
    element for element; events also equal the v2 kernels'); kernel and plain
@@ -30,7 +32,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
    (1156 blocks, core fraction 0.4875, 7,028,975 bp) and must stay within
-   QUALITY_TOLERANCE of them;
+   QUALITY_TOLERANCE of them; the DP's launch log (stripe_v2.DP_TIMING) gives
+   its summed device ms, per band width B, and a histogram of problems per
+   launch for each B;
 5. the long-tier path: the same build with PANGRAPH_TPU_CKPT_BYTES=32000000,
    which sends the tiers whose per-problem records pass 32 MB (counted as
    the reference counts them) to the checkpoint pair: exact roundtrip, all
@@ -71,8 +75,10 @@ REFERENCE_QUALITY = {"n_blocks": 1156, "core_fraction": 0.4875, "pangenome_bp": 
 # this close to the reference's figures (relative for blocks and bp,
 # absolute for the core fraction).
 QUALITY_TOLERANCE = {"n_blocks": 0.01, "core_fraction": 0.01, "pangenome_bp": 0.001}
+# (B, R, problems); B 256 and 384 sit on each side of the DP's switch from
+# one warp a problem to one block a problem (DP_WARP_MAX_B)
 KERNEL_SHAPES = [(128, 4096, 256), (128, 10240, 256), (256, 4096, 128), (256, 10240, 128),
-                 (2048, 4096, 32), (2048, 10240, 32)]  # (B, R, problems)
+                 (384, 4096, 64), (512, 4096, 32), (2048, 4096, 32), (2048, 10240, 32)]
 PLAIN_WALK_PROBLEMS = 16
 WALK_K = 256
 TIMED_REPS = 5
@@ -114,6 +120,36 @@ DP_RECORD_OPS = {  # what a record adds
 }
 CKPT_DP_OPS_PER_CELL = sum(DP_CARRY_OPS.values())  # the checkpoint DP: carries only
 DP_OPS_PER_CELL = CKPT_DP_OPS_PER_CELL + sum(DP_RECORD_OPS.values())  # the DP, the walk's re-derive
+# The DP's dependency: row i needs all of row i-1, so a problem's rows run
+# one after another and a launch takes at least its longest problem's rows
+# times the cycles of one row's critical path, at SM_CLOCK_HZ. The path is
+# that of the interior form of csrc/stripe_row.cuh's row step, which most
+# rows take. Latencies are assumed, not measured: 4 cycles a dependent
+# integer operation, 24 a warp shuffle, 30 a warp reduction, 40 a block
+# barrier with its shared-memory exchange. LPT = lanes a thread: B / 32 in
+# the warp layout (B <= DP_WARP_MAX_B), 4 in the wide one.
+DP_WARP_MAX_B = 256
+DP_ROW_CYCLES = {  # the path from one row's horizontal-gap prefix to the next row's
+    "H = max(NQ, prefix, local prefix): one 3-input max": 4,
+    "next row's P: diagonal add, NQ max, subtract the gap open": 3 * 4,
+    "the thread totals shifted up one thread: a shuffle and a pick": 24 + 4,
+    "warp scan of the thread totals: 3 levels of shuffles, 5 maxes": 3 * 24 + 5 * 4,
+    "prefix over the warps below: one max": 4,
+}
+DP_LANE_CYCLES = 2  # the thread's own prefix of P and its total: a 3-input max per two lanes
+DP_ROW_CYCLES_WIDE = {  # added in the wide layout
+    "one block barrier with the per-warp exchange": 40,
+    "the warps' totals: one warp reduction": 30,
+}
+
+
+def dp_row_cycles(B: int) -> int:
+    """Assumed cycles of one DP row's critical path at band width B."""
+    lpt = B // 32 if B <= DP_WARP_MAX_B else 4
+    wide = sum(DP_ROW_CYCLES_WIDE.values()) if B > DP_WARP_MAX_B else 0
+    return sum(DP_ROW_CYCLES.values()) + DP_LANE_CYCLES * lpt + wide
+
+
 # per walk move, from ops/stripe_v2.py:_Walker.move (csrc/walk_step.cuh)
 WALK_OPS_PER_MOVE = 35
 # (k, w) of phase 3c's sketch batches; rows per batch; row lengths (bp)
@@ -286,6 +322,16 @@ def _bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _dp_bound(nbytes: float, ops: float, rlen, B: int) -> dict:
+    """A DP's bound: `_bound` of its bytes and operations, beside its
+    dependency bound, the longest problem's rows times dp_row_cycles(B);
+    `binds` names the larger."""
+    out = _bound(nbytes, ops)
+    out["dep_bound_ms"] = int(np.max(rlen, initial=0)) * dp_row_cycles(B) / SM_CLOCK_HZ * 1e3
+    out["binds"] = "dependency" if out["dep_bound_ms"] > out["bound_ms"] else out["bound_by"]
+    return out
+
+
 def _dp_work(rlen, qlen, B: int) -> tuple:
     """(input bytes, cells) of a DP over these problems: each sequence byte
     and the four int32 problem vectors read once."""
@@ -347,7 +393,7 @@ def phase_kernels(torch) -> dict:
         diff = (rec.int() - rec_plain.int()).abs()[rows_live]
         dp_err = int(diff.max()) if diff.numel() else 0
         in_bytes, cells = _dp_work(arrays[2], arrays[3], B)
-        dp_bound = _bound(in_bytes + 2 * cells, DP_OPS_PER_CELL * cells)
+        dp_bound = _dp_bound(in_bytes + 2 * cells, DP_OPS_PER_CELL * cells, arrays[2], B)
 
         out = sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K)
         n = min(PLAIN_WALK_PROBLEMS, m)
@@ -366,7 +412,9 @@ def phase_kernels(torch) -> dict:
         times[(B, R)] = {"stripe_dp": (dp_ms, plain_dp_ms, dp_bound), "walk": (walk_ms, plain_walk_ms, walk_bound)}
         say("kernels", B=B, R=R, problems=m, cells=cells, dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1),
             dp_gcells_per_s=round(cells / dp_ms / 1e6, 2), dp_bound_ms=round(dp_bound["bound_ms"], 4),
-            dp_bound_by=dp_bound["bound_by"], dp_max_abs_err=dp_err,
+            dp_bound_by=dp_bound["bound_by"], dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4),
+            dp_binds=dp_bound["binds"], dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())),
+            dp_max_abs_err=dp_err,
             walk_all_ms=round(walk_full_ms, 4), walk_problems=n, walk_ms=round(walk_ms, 4),
             plain_walk_ms=round(plain_walk_ms, 2), walk_bound_ms=walk_bound["bound_ms"],
             walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact)
@@ -406,7 +454,7 @@ def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: int) -> 
     rlen, qlen = arrays[2], arrays[3]
     in_bytes, cells = _dp_work(rlen, qlen, B)
     live = int((np.minimum(rlen // WV, n_windows - 1) + 1).sum())
-    dp = _bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells)
+    dp = _dp_bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells, rlen, B)
     sub = [t[:problems] for t in out]
     win = _rederived_windows(sub, rlen[:problems], WV, K)
     walk = _walk_bound(sub[2].cpu().numpy(), K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
@@ -456,7 +504,9 @@ def phase_ckpt_kernels(torch) -> dict:
         cells = int(arrays[2].sum()) * B
         say("ckpt_kernels", B=B, R=R, problems=m, WV=WV, windows=n_windows, cells=cells,
             dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1), dp_gcells_per_s=round(cells / dp_ms / 1e6, 2),
-            dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"], dp_max_abs_err=dp_err,
+            dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"],
+            dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4), dp_binds=dp_bound["binds"],
+            dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())), dp_max_abs_err=dp_err,
             walk_all_ms=round(walk_all_ms, 3), walk_problems=n, walk_ms=round(walk_ms, 3),
             plain_walk_ms=round(plain_walk_ms, 1), walk_rederived_windows_at_least=win,
             walk_bound_ms=round(walk_bound["bound_ms"], 4), walk_bound_by=walk_bound["bound_by"],
@@ -558,9 +608,15 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
             BatchAligner.reset_engine_stats()
             for mod in (sv, sk, ch):
                 mod.reset_launches()
+            sv.DP_TIMING = []
             t0 = time.time()
-            rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
-            wall = time.time() - t0
+            try:
+                rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
+                wall = time.time() - t0
+                torch.cuda.synchronize()
+                dp_log = dp_log_summary(sv.DP_TIMING)
+            finally:
+                sv.DP_TIMING = None
             launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
             report = BatchAligner.engine_report()
             if rc != 0:
@@ -575,6 +631,10 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
     say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
+    for name, s in dp_log.items():
+        say(f"{phase}.dp_device", kernel=name, launches=s["launches"], device_ms=round(s["ms"], 3),
+            device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
+            problems_per_launch_by_B=json.dumps(s["hist"]))
     for name, must in want.items():
         if must and launches[name] <= 0:
             raise AssertionError(f"{phase}: kernel {name} was never launched: {launches}")
@@ -586,7 +646,29 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
         off = abs(quality[k] - want_q) / (1 if k == "core_fraction" else want_q)
         if off > QUALITY_TOLERANCE[k]:
             raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
-    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall}
+    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "dp": dp_log}
+
+
+def dp_log_summary(log: list) -> dict:
+    """Per DP kernel of a build's launch log (stripe_v2.DP_TIMING, read after
+    a synchronize): launches, summed device ms, in all and per B (each launch's own event pair
+    on its stream; the merge threads' streams may overlap, so the sum can
+    pass the busy time), and per B a histogram of problems per launch as
+    {B: {"1-8": n, "9-32": n, ...}}, the bins split at 8, 32, 132 (the
+    card's SMs), 512 and 2048 problems."""
+    bins = [(1, 8), (9, 32), (33, 132), (133, 512), (513, 2048), (2049, 1 << 30)]
+    out = {}
+    for name, B, _R, m, start, end in log:
+        s = out.setdefault(name, {"launches": 0, "ms": 0.0, "hist": {}, "ms_by_B": {}})
+        ms = start.elapsed_time(end)
+        s["launches"] += 1
+        s["ms"] += ms
+        s["ms_by_B"][str(B)] = s["ms_by_B"].get(str(B), 0.0) + ms
+        lo, hi = next(b for b in bins if b[0] <= m <= b[1])
+        h = s["hist"].setdefault(str(B), {})
+        key = f"{lo}-{hi}" if hi < 1 << 30 else f"{lo}+"
+        h[key] = h.get(key, 0) + 1
+    return out
 
 
 def _sketch_bound(m: int, L_pad: int, w: int) -> dict:
@@ -846,8 +928,9 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
     the headline's default path, the checkpoint pair on the long-tier path,
     the sketch and chain on phase 6), worst error against its plain version
     over every shape it was held at, and its times and bound at one shape
-    where both were timed (for the sketch and chain, phase 6's own; the
-    chain also carries its dependency bound and which bound binds)."""
+    where both were timed (for the sketch and chain, phase 6's own; the two
+    DP modes and the chain also carry their dependency bound and which bound
+    binds)."""
     rows = []
     for name, (shape, phase, path) in {
         "stripe_dp": ((128, 10240), kern, main_path),
@@ -869,6 +952,8 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
             "shape": f"B={shape[0]} R={shape[1]} problems={problems}",
         })
+        if "dep_bound_ms" in bound:
+            rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
     sketch_path = sc_path["sketch"][(19, 19)]
     for name, path, worst, shape in (
         ("sketch", sketch_path, max([sc["worst"]["sketch"]] + [x["err"] for x in sc_path["sketch"].values()]),

@@ -32,7 +32,9 @@
 // block owns a window of global scratch ([WV][B] uint16) that the wrapper
 // allocates; the grid is bounded so that all windows together stay about
 // L2-sized (stripe_v2.walk_ckpt_grid), and blocks loop over problems
-// p = blockIdx.x, + gridDim.x, ...
+// p = blockIdx.x, + gridDim.x, ... A block holds one problem's band in the
+// DP's layout (stripe_row.cuh): one warp for B <= WARP_MAX_B, B/4 threads
+// above.
 //
 // What bounds it: the re-derive, when a walker needs a window: WV rows of the
 // DP's serial row chain (see stripe_dp.cu), then one dependent load per event
@@ -49,8 +51,8 @@ namespace {
 using namespace stripe;
 using namespace walkstep;
 
-template <int LPT>
-__global__ void __launch_bounds__(1024) walk_ckpt_kernel(
+template <int LPT, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? MAX_B / WIDE_LPT : 32) walk_ckpt_kernel(
     const uint8_t* __restrict__ ref, long long ref_stride,
     const uint8_t* __restrict__ qry, long long qry_stride,
     const int* __restrict__ rlen_a, const int* __restrict__ qlen_a,
@@ -60,12 +62,14 @@ __global__ void __launch_bounds__(1024) walk_ckpt_kernel(
     uint16_t* scratch, int K, int* __restrict__ rows, int* __restrict__ words,
     int* __restrict__ nev, int* __restrict__ meta, int m)
 {
-    extern __shared__ int smem[];
+    __shared__ Tables s_t;
+    __shared__ Xchg s_x;
     __shared__ int s_need;
-    const RowSmem s = row_smem(smem, B);
     const int t = threadIdx.x;
+    const Lanes L = lanes<LPT, WIDE>();
     uint16_t* win = scratch + (long long)blockIdx.x * WV * B;  // this block's window [WV][B]
-    load_iupac(s, iupac_g);
+    load_tables(s_t, iupac_g);
+    init_xchg(s_x);
     __syncthreads();
 
     for (int p = blockIdx.x; p < m; p += gridDim.x) {
@@ -98,11 +102,13 @@ __global__ void __launch_bounds__(1024) walk_ckpt_kernel(
             }
             __syncthreads();
             if (s_need) {
-                int Hc[LPT], runc[LPT];
-                start_row<LPT>(s, P, c0, ckp + (long long)w * 3 * B, B, Hc, runc);
-                const int top = min(c0 + WV, P.rlen);
-                for (int i = c0 + 1; i <= top; ++i)
-                    row_step<LPT>(s, P, i, B, Hc, runc, win + (long long)(i - 1 - c0) * B);
+                Band<LPT> b;
+                Stage st;
+                start_row<LPT>(b, st, P, L, c0, ckp + (long long)w * 3 * B, B, s_t);
+                run_rows<LPT, WIDE, true>(
+                    b, st, P, L, &s_x, c0 + 1, min(c0 + WV, P.rlen), B, s_t,
+                    [&](int i) { return win + (long long)(i - 1 - c0) * B; }, 0, [](int) {});
+                __syncthreads();  // the window's records, for thread 0
                 if (t == 0) {
                     const int jump = min(wk.rr, wk.i - c0);  // the carried run first
                     wk.i -= jump;
@@ -121,6 +127,16 @@ __global__ void __launch_bounds__(1024) walk_ckpt_kernel(
     }
 }
 
+template <int LPT, bool WIDE>
+void run(int grid, cudaStream_t st, const uint8_t* r, long long ref_stride, const uint8_t* q, long long qry_stride,
+         const int* rl, const int* ql, const int* msp, const int* wp, const uint8_t* iu, const int* ck,
+         int n_windows, int WV, int B, uint16_t* sc, int K, int* ro, int* wo, int* ne, int* me, int m)
+{
+    const int threads = WIDE ? B / LPT : 32;
+    walk_ckpt_kernel<LPT, WIDE><<<grid, threads, 0, st>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu,
+                                                         ck, n_windows, WV, B, sc, K, ro, wo, ne, me, m);
+}
+
 }  // namespace
 
 extern "C" int walk_ckpt_launch(
@@ -130,12 +146,9 @@ extern "C" int walk_ckpt_launch(
     void* rows, void* words, void* nev, void* meta, int m, void* stream)
 {
     if (m <= 0) return 0;
-    if (B < 128 || B > 2048 || B % 128 != 0 || K < 1 || grid < 1 || n_windows < 1 ||
+    if (B < 128 || B > MAX_B || B % 128 != 0 || K < 1 || grid < 1 || n_windows < 1 ||
         WV < DP_C || WV % DP_C != 0)
         return (int)cudaErrorInvalidValue;
-    const int lpt = B > 1024 ? 2 : 1;
-    const int threads = B / lpt;
-    const size_t shm = row_smem_bytes(B);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint8_t* r = static_cast<const uint8_t*>(ref);
     const uint8_t* q = static_cast<const uint8_t*>(qry);
@@ -150,11 +163,7 @@ extern "C" int walk_ckpt_launch(
     int* wo = static_cast<int*>(words);
     int* ne = static_cast<int*>(nev);
     int* me = static_cast<int*>(meta);
-    if (lpt == 1)
-        walk_ckpt_kernel<1><<<grid, threads, shm, st>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu,
-                                                        ck, n_windows, WV, B, sc, K, ro, wo, ne, me, m);
-    else
-        walk_ckpt_kernel<2><<<grid, threads, shm, st>>>(r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu,
-                                                        ck, n_windows, WV, B, sc, K, ro, wo, ne, me, m);
+    const auto fn = B > WARP_MAX_B ? run<WIDE_LPT, true> : B == 128 ? run<4, false> : run<8, false>;
+    fn(grid, st, r, ref_stride, q, qry_stride, rl, ql, msp, wp, iu, ck, n_windows, WV, B, sc, K, ro, wo, ne, me, m);
     return (int)cudaGetLastError();
 }

@@ -82,6 +82,27 @@ def _count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+# DP launch log, off unless a caller sets it to a list: each DP launch then
+# appends (name, B, R, problems, start, end), a CUDA event pair recorded on
+# the launch's stream around the kernel. Nothing here synchronizes; the
+# caller reads the events after its own synchronize.
+DP_TIMING = None
+
+
+def _dp_events(device):
+    if DP_TIMING is None:
+        return None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(device))
+    return start, end
+
+
+def _log_dp(events, name: str, B: int, R: int, m: int, device) -> None:
+    if events is not None:
+        events[1].record(torch.cuda.current_stream(device))
+        DP_TIMING.append((name, B, R, m, *events))
+
+
 def walk_segment(R_cap: int, B: int) -> int:
     """Rows per walk segment for a tier: a match-run jump stops at the start
     of the segment holding its row. The reference walks its records in VMEM
@@ -302,11 +323,13 @@ def stripe_dp_cuda(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
         return rec
     lib = cuda_build.lib("stripe_dp.cu")
     with torch.cuda.device(ref.device):
+        ev = _dp_events(ref.device)
         rc = lib.stripe_dp_launch(
             _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
             _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(ref.device)),
             _ptr(rec), R, B, m, _stream(ref.device),
         )
+        _log_dp(ev, "stripe_dp", B, R, m, ref.device)
     if rc != 0:
         raise RuntimeError(f"stripe_dp kernel launch failed: CUDA error {rc}")
     _count_launch("stripe_dp")
@@ -542,11 +565,13 @@ def stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) 
         return ckpt
     lib = cuda_build.lib("stripe_dp.cu")
     with torch.cuda.device(ref.device):
+        ev = _dp_events(ref.device)
         rc = lib.stripe_dp_ckpt_launch(
             _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
             _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(ref.device)),
             _ptr(ckpt), n_windows, ckpt_layout(B), B, m, _stream(ref.device),
         )
+        _log_dp(ev, "stripe_dp_ckpt", B, ref.shape[1], m, ref.device)
     if rc != 0:
         raise RuntimeError(f"stripe_dp_ckpt kernel launch failed: CUDA error {rc}")
     _count_launch("stripe_dp_ckpt")

@@ -121,6 +121,48 @@ def test_ckpt_kernels_match_plain_versions(B, R):
     assert sv.LAUNCHES["walk_ckpt"] == before["walk_ckpt"] + 1
 
 
+def layout_pairs(rng, B):
+    """(ref, qry, mean shift) pairs for the DP kernel's layouts: rlen 0 and
+    rlen 1; rows that cross many 32-row stages, several 128-row chunk rows
+    and (at every B) checkpoint windows; a query longer than rlen + B; and
+    bands shifted past the query's start and past its end."""
+    W = (B - 2) // 2
+    out = [(np.zeros(0, np.uint8), ACGT[rng.integers(0, 4, 40)], 0), (ACGT[:1].copy(), ACGT[rng.integers(0, 4, 3)], 0)]
+    out += pairs(rng, 3, 300, 2300)
+    r = ACGT[rng.integers(0, 4, 500)]
+    out.append((r, np.concatenate([mutate(r, rng, 5, 3), ACGT[rng.integers(0, 4, B + 200)]]), 0))
+    r = ACGT[rng.integers(0, 4, 700)]
+    q = mutate(r, rng, 10, 4)
+    out += [(r, q, W + 40), (r, q, -W - 40), (r, q, len(q) - len(r) + W // 2)]
+    return out
+
+
+@pytest.mark.parametrize("B", range(128, 2049, 128))
+def test_dp_layouts_match_plain_versions(B):
+    """Both DP modes and the checkpoint walk (whose re-derive runs the DP's
+    row step) against their plain versions at every band width, on each side
+    of the warp/block layout switch."""
+    need_cuda()
+    t = batch(layout_pairs(np.random.default_rng(B), B), B)
+    tc = [x.cuda() for x in t]
+    rec = sv.stripe_dp(*tc, B).cpu()
+    rec_plain = sv.stripe_dp(*t, B)
+    live = torch.arange(rec.shape[1])[None, :] < t[2][:, None]
+    assert torch.equal(rec[live], rec_plain[live])
+    R_cap, K = 2560, 512
+    WV = sv.ckpt_layout(B)
+    ck = sv.stripe_dp_ckpt(*tc, B, R_cap)
+    ck_plain = sv.stripe_dp_ckpt(*t, B, R_cap)
+    live = torch.arange(ck.shape[1])[None, :] * WV <= t[2][:, None]
+    assert torch.equal(ck.cpu()[live], ck_plain[live])
+    got = [x.cpu() for x in sv.walk_ckpt(ck, *tc, K)]
+    want = sv.walk_ckpt(ck_plain, *t, K)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for s in range(len(t[2])):
+        n = min(int(want[2][s]), K)
+        assert torch.equal(got[0][s, :n], want[0][s, :n]) and torch.equal(got[1][s, :n], want[1][s, :n])
+
+
 @pytest.mark.parametrize("ckpt_bytes", [None, 0], ids=["stripe", "ckpt"])
 def test_align_many_on_the_card_matches_the_cpu(ckpt_bytes):
     need_cuda()

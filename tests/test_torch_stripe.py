@@ -209,6 +209,10 @@ def test_pipeline_edits_match_reference(batch_512, pipelines_512, case):
         ("multichunk", 1024, 128, 900, (20, 4, 4)),
         ("band256", 512, 256, 450, (12, 6, 6)),
         ("tier10240", 10240, 128, 2600, (30, 6, 6)),
+        # the narrowest band of the CUDA DP's block layout (band256 is the
+        # widest of its warp layout), and B 512
+        ("band384", 512, 384, 400, (8, 4, 4)),
+        ("band512", 512, 512, 400, (8, 4, 4)),
     ],
 )
 def test_tiers_and_bands_match_pallas(name, R_cap, B, n, muts):
