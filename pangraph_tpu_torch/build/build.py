@@ -166,9 +166,18 @@ def build(records, args: BuildArgs, aligner=None, find_matches_override=None, pr
     ckpt = MergeCheckpointer(args.checkpoint_dir) if getattr(args, "checkpoint_dir", None) else None
     coordinate_arg = getattr(args, "coordinate", False)
     if isinstance(coordinate_arg, str):
-        # the reference's tcp://HOST:PORT transport is not ported yet; only
-        # coordination through the shared checkpoint directory is
-        raise ValueError(f"unsupported coordinate transport {coordinate_arg!r}")
+        if not coordinate_arg.startswith("tcp://"):
+            # a typo'd scheme falling through to the file transport (or to a
+            # solo build when no checkpoint dir is set) would repeat all the
+            # work without a warning
+            raise ValueError(
+                f"unsupported --coordinate transport {coordinate_arg!r} (expected tcp://HOST:PORT)"
+            )
+        # the TCP claim and exchange transport: the same interface, no shared
+        # filesystem (a --checkpoint-dir is still written through, for resume)
+        from pangraph_tpu_torch.parallel.coordinator import TcpMergeCheckpointer
+
+        ckpt = TcpMergeCheckpointer(coordinate_arg, local=ckpt)
     # leaf clade data is the record index; map to names for checkpoint keys
     leaf_names = {}
     if ckpt is not None:

@@ -36,9 +36,13 @@ def build_parser():
     )
     b.add_argument(
         "--coordinate",
-        action="store_true",
-        help="Share one build across workers that share --checkpoint-dir: merges are claimed "
-        "through marker files in that directory",
+        nargs="?",
+        const=True,
+        default=False,
+        metavar="tcp://HOST:PORT",
+        help="Share one build across workers: the bare flag claims merges through marker files in "
+        "--checkpoint-dir (a shared filesystem); with tcp://HOST:PORT, claims and subgraphs go through "
+        "a coordination server (the first worker to bind it hosts it), with no shared filesystem",
     )
     b.add_argument(
         "--device",
