@@ -17,10 +17,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    at the shapes the long-tier path gives it, (B 128, R 65536),
    (B 1920, R 131072) and (B 2048, R 10240) (carries, events and meta equal
    element for element; events also equal the v2 kernels'); kernel and plain
-   times are printed;
+   times are printed, with the checkpoint walk's waves and the device ms of
+   its re-derive and walk launches apart, and each walk's dependency bound;
 3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),
    kernels only: its events must equal the v2 kernels' on the same batch;
-   both routes are timed, with their carry and record bytes;
+   both routes are timed, with their carry and record bytes, and the
+   checkpoint walk's re-derive and walk launches apart;
 3c. the sketch and chain kernels against their plain versions on the card:
    the sketch on random code batches with N and lowercase (8 and 9 rows of
    150-300 kbp) at (k, w) = (15, 100), (19, 19) and (7, 5), dense outputs
@@ -32,13 +34,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
    (1156 blocks, core fraction 0.4875, 7,028,975 bp) and must stay within
-   QUALITY_TOLERANCE of them; the DP's launch log (stripe_v2.DP_TIMING) gives
-   its summed device ms, per band width B, and a histogram of problems per
+   QUALITY_TOLERANCE of them; the kernels' launch log
+   (stripe_v2.KERNEL_TIMING) gives each DP and walk kernel's launches and
+   summed device ms, per band width B, and a histogram of problems per
    launch for each B;
 5. the long-tier path: the same build with PANGRAPH_TPU_CKPT_BYTES=32000000,
    which sends the tiers whose per-problem records pass 32 MB (counted as
    the reference counts them) to the checkpoint pair: exact roundtrip, all
-   four kernels launched, the same device-share and quality limits.
+   four kernels launched, the same device-share and quality limits; the
+   launch log gives the checkpoint walk's device ms in all and split into
+   its re-derive and walk launches (`walk_ckpt.rederive`, `walk_ckpt.walk`).
    Neither build launches the sketch or chain kernel: the build sketches and
    chains in host C++, as the reference's does;
 6. the sketch and chain path on the headline's genomes: all ten sketched on
@@ -152,6 +157,13 @@ def dp_row_cycles(B: int) -> int:
 
 # per walk move, from ops/stripe_v2.py:_Walker.move (csrc/walk_step.cuh)
 WALK_OPS_PER_MOVE = 35
+# The walks' dependency: each move reads the record that decides the next
+# move, so a walk takes at least its record reads times the latency of one
+# dependent load (with the move's few dozen operations behind it). Assumed,
+# not measured: 300 cycles, about an L2 hit's latency on Hopper as published
+# microbenchmarks give it; a load that misses L2 costs more. Problems walk at
+# once, one thread each, so a launch takes at least its longest walk's.
+DEP_LOAD_CYCLES = 300
 # (k, w) of phase 3c's sketch batches; rows per batch; row lengths (bp)
 SKETCH_PARAMS = [(15, 100), (19, 19), (7, 5)]
 SKETCH_ROWS = (8, 9)
@@ -338,12 +350,40 @@ def _dp_work(rlen, qlen, B: int) -> tuple:
     return int(rlen.sum()) + int(qlen.sum()) + 16 * len(rlen) + 256, int(rlen.sum()) * B
 
 
-def _walk_bound(nev, K: int, extra_bytes: int = 0, extra_ops: int = 0) -> dict:
+def _walk_reads(out, rlen, K: int, jump_rows: int = None) -> np.ndarray:
+    """A lower bound on each problem's record reads, from its events and
+    meta: one per deleted row and one per inserted query letter (each is a
+    move), and, for a walk whose match jumps cover at most jump_rows rows
+    (the v2 walk: the records' run cap or its segment, whichever is less),
+    ceil((rlen - deleted rows) / jump_rows) jumps where the walk reached row
+    0. The checkpoint walk's carried runs cross rows without a read, so it
+    is given no jump term."""
+    words, nev, meta = (t.cpu().numpy() for t in out[1:])
+    reads = np.zeros(len(rlen), np.int64)
+    for s in range(len(rlen)):
+        w = words[s, : min(int(nev[s]), K)].astype(np.int64)
+        deleted = int(np.where(w & 3 == 2, w >> 17, 0).sum())
+        reads[s] = deleted + int(((w >> 2) & 0x7FFF).sum()) + int(meta[s, 3])
+        if jump_rows and not meta[s, 1]:
+            reads[s] += -(-(int(rlen[s]) - deleted) // jump_rows)
+    return reads
+
+
+def _walk_bound(out, rlen, K: int, jump_rows: int = None, extra_bytes: int = 0, extra_ops: int = 0,
+                dep_cycles: int = 0) -> dict:
     """A walk's bound, counting at least one move per event: per event one
     record read (2 bytes) and its row and word written (8 bytes), per
-    problem its four int32 inputs read and n_events and meta written."""
+    problem its four int32 inputs read and n_events and meta written;
+    beside it the dependency bound, dep_cycles plus the longest walk's
+    record reads (_walk_reads) times DEP_LOAD_CYCLES; `binds` names the
+    larger."""
+    nev = out[2].cpu().numpy()
     events = int(np.minimum(nev, K).sum())
-    return _bound(events * 10 + len(nev) * 36 + extra_bytes, events * WALK_OPS_PER_MOVE + extra_ops)
+    b = _bound(events * 10 + len(nev) * 36 + extra_bytes, events * WALK_OPS_PER_MOVE + extra_ops)
+    reads = _walk_reads(out, rlen, K, jump_rows)
+    b["dep_bound_ms"] = (dep_cycles + int(reads.max(initial=0)) * DEP_LOAD_CYCLES) / SM_CLOCK_HZ * 1e3
+    b["binds"] = "dependency" if b["dep_bound_ms"] > b["bound_ms"] else b["bound_by"]
+    return b
 
 
 def _walk_err(out_k, out_p, n: int, K: int) -> int:
@@ -403,7 +443,7 @@ def phase_kernels(torch) -> dict:
         plain_walk_ms, out_plain = _host_ms(torch, lambda: sv.walk_plain(*sub, seg, WALK_K))
         walk_err = _walk_err(out, out_plain, n, WALK_K)
         nev_k = out[2].cpu().numpy()
-        walk_bound = _walk_bound(nev_k[:n], WALK_K)
+        walk_bound = _walk_bound([x[:n] for x in out], arrays[2][:n], WALK_K, min(sv.RUN_CAP, seg))
         # every pair whose events decode must decode to its exact edit
         decoded, exact = _decode_all(sv, arrays, out)
 
@@ -417,6 +457,7 @@ def phase_kernels(torch) -> dict:
             dp_max_abs_err=dp_err,
             walk_all_ms=round(walk_full_ms, 4), walk_problems=n, walk_ms=round(walk_ms, 4),
             plain_walk_ms=round(plain_walk_ms, 2), walk_bound_ms=walk_bound["bound_ms"],
+            walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 5), walk_binds=walk_bound["binds"],
             walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact)
         if dp_err or walk_err or exact != decoded:
             raise AssertionError(f"kernel disagrees with its plain version at B={B} R={R}")
@@ -457,9 +498,26 @@ def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: int) -> 
     dp = _dp_bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells, rlen, B)
     sub = [t[:problems] for t in out]
     win = _rederived_windows(sub, rlen[:problems], WV, K)
-    walk = _walk_bound(sub[2].cpu().numpy(), K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
-                       extra_ops=win * WV * B * DP_OPS_PER_CELL)
+    walk = _walk_bound(sub, rlen[:problems], K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
+                       extra_ops=win * WV * B * DP_OPS_PER_CELL, dep_cycles=WV * dp_row_cycles(B))
     return dp, walk, win
+
+
+def _walk_ckpt_parts(torch, sv, args, K: int) -> dict:
+    """One more walk_ckpt call under the launch log: its waves, and the
+    device ms of its re-derive launches and of its walk launches, each
+    summed over the waves."""
+    sv.KERNEL_TIMING = []
+    try:
+        sv.walk_ckpt(*args, K)
+        torch.cuda.synchronize()
+        log = sv.KERNEL_TIMING
+    finally:
+        sv.KERNEL_TIMING = None
+    ms = {name: sum(e[4].elapsed_time(e[5]) for e in log if e[0] == name)
+          for name in ("walk_ckpt.rederive", "walk_ckpt.walk")}
+    return {"waves": sum(e[0] == "walk_ckpt.walk" for e in log), "rederive_ms": ms["walk_ckpt.rederive"],
+            "walk_ms": ms["walk_ckpt.walk"]}
 
 
 def phase_ckpt_kernels(torch) -> dict:
@@ -491,6 +549,7 @@ def phase_ckpt_kernels(torch) -> dict:
         plain_walk_ms, out_plain = _host_ms(
             torch, lambda: sv.walk_ckpt_plain(ck_plain[:n].contiguous(), *sub[1:], WALK_K))
         walk_err = _walk_err(out, out_plain, n, WALK_K)
+        parts = _walk_ckpt_parts(torch, sv, sub, WALK_K)
 
         v2 = sv.walk(sv.stripe_dp(*t, B), *t[2:], sv.walk_segment(R, B), WALK_K)
         bad, bnd = _events_differ(out, v2, WALK_K)
@@ -508,8 +567,11 @@ def phase_ckpt_kernels(torch) -> dict:
             dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4), dp_binds=dp_bound["binds"],
             dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())), dp_max_abs_err=dp_err,
             walk_all_ms=round(walk_all_ms, 3), walk_problems=n, walk_ms=round(walk_ms, 3),
-            plain_walk_ms=round(plain_walk_ms, 1), walk_rederived_windows_at_least=win,
+            plain_walk_ms=round(plain_walk_ms, 1), walk_waves=parts["waves"],
+            walk_rederive_ms=round(parts["rederive_ms"], 3), walk_walk_ms=round(parts["walk_ms"], 3),
+            walk_rederived_windows_at_least=win,
             walk_bound_ms=round(walk_bound["bound_ms"], 4), walk_bound_by=walk_bound["bound_by"],
+            walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 4), walk_binds=walk_bound["binds"],
             walk_max_abs_err=walk_err, max_events=int(out[2].max()), events_differ_from_v2=bad,
             meta2_differs_from_v2=bnd, decoded=decoded, exact=exact)
         if dp_err or walk_err or bad or exact != decoded:
@@ -536,6 +598,7 @@ def phase_mbp(torch) -> dict:
     out = sv.walk_ckpt(ck, *t, MBP_K)
     ck_dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), 1)
     ck_walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, MBP_K), 1)
+    parts = _walk_ckpt_parts(torch, sv, [ck] + t, MBP_K)
     carry_bytes = ck.numel() * 4
     del ck
     rec = sv.stripe_dp(*t, B)
@@ -552,7 +615,10 @@ def phase_mbp(torch) -> dict:
     say("mbp", B=B, R=R, problems=m, windows=n_windows, setup_s=round(setup_s, 1), cells=cells,
         max_events=int(out[2].max()), overflow=int((out[2] > MBP_K).sum()),
         ckpt_dp_ms=round(ck_dp_ms, 3), ckpt_walk_ms=round(ck_walk_ms, 3),
+        ckpt_walk_waves=parts["waves"], ckpt_walk_rederive_ms=round(parts["rederive_ms"], 3),
+        ckpt_walk_walk_ms=round(parts["walk_ms"], 3),
         ckpt_dp_bound_ms=round(dp_bound["bound_ms"], 3), ckpt_walk_bound_ms=round(walk_bound["bound_ms"], 3),
+        ckpt_walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 3),
         walk_rederived_windows_at_least=win, v2_dp_ms=round(v2_dp_ms, 3), v2_walk_ms=round(v2_walk_ms, 3),
         carry_bytes=carry_bytes, record_bytes=record_bytes, events_differ_from_v2=bad, meta2_differs_from_v2=bnd)
     if bad:
@@ -608,15 +674,15 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
             BatchAligner.reset_engine_stats()
             for mod in (sv, sk, ch):
                 mod.reset_launches()
-            sv.DP_TIMING = []
+            sv.KERNEL_TIMING = []
             t0 = time.time()
             try:
                 rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
                 wall = time.time() - t0
                 torch.cuda.synchronize()
-                dp_log = dp_log_summary(sv.DP_TIMING)
+                kernel_log = launch_log_summary(sv.KERNEL_TIMING)
             finally:
-                sv.DP_TIMING = None
+                sv.KERNEL_TIMING = None
             launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
             report = BatchAligner.engine_report()
             if rc != 0:
@@ -631,8 +697,9 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
     say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
-    for name, s in dp_log.items():
-        say(f"{phase}.dp_device", kernel=name, launches=s["launches"], device_ms=round(s["ms"], 3),
+    for name, s in kernel_log.items():
+        say(f"{phase}.{'dp' if name.startswith('stripe_dp') else 'walk'}_device", kernel=name,
+            launches=s["launches"], device_ms=round(s["ms"], 3),
             device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
             problems_per_launch_by_B=json.dumps(s["hist"]))
     for name, must in want.items():
@@ -646,11 +713,11 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
         off = abs(quality[k] - want_q) / (1 if k == "core_fraction" else want_q)
         if off > QUALITY_TOLERANCE[k]:
             raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
-    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "dp": dp_log}
+    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log}
 
 
-def dp_log_summary(log: list) -> dict:
-    """Per DP kernel of a build's launch log (stripe_v2.DP_TIMING, read after
+def launch_log_summary(log: list) -> dict:
+    """Per kernel of a build's launch log (stripe_v2.KERNEL_TIMING, read after
     a synchronize): launches, summed device ms, in all and per B (each launch's own event pair
     on its stream; the merge threads' streams may overlap, so the sum can
     pass the busy time), and per B a histogram of problems per launch as

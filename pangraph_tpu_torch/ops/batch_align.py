@@ -42,12 +42,11 @@ from pangraph_tpu_torch.graph.seq import IUPAC_MASK, as_seq
 from pangraph_tpu_torch.ops.stripe_v2 import (
     DP_C,
     MAX_B,
-    ckpt_layout,
     ckpt_windows,
     edit_from_events,
     stripe_align,
     stripe_align_ckpt,
-    walk_ckpt_grid,
+    walk_ckpt_device_bytes,
     walk_segment,
 )
 from pangraph_tpu_torch.utils import trace
@@ -539,12 +538,13 @@ class BatchAligner:
         return ckpt_windows(R_cap, B) * 3 * B * 4 + R + Q if ckpt else R * B * 2
 
     def _launch_bytes(self, jobs, sub, R_cap: int, B: int, ckpt: bool) -> int:
-        """Device bytes of one launch: its problems' bytes, and the
-        checkpoint walk's scratch."""
+        """Device bytes of one launch: its problems' bytes, padded as
+        _run_planned packs them, and the checkpoint walk's scratch and
+        walker state."""
         m = len(sub)
-        R = max(len(jobs[i].ref) for i in sub)
-        Q = max(len(jobs[i].qry) for i in sub)
-        scratch = walk_ckpt_grid(m, B) * ckpt_layout(B) * B * 2 if ckpt else 0
+        R = max(max(len(jobs[i].ref) for i in sub), 1)
+        Q = max(max(len(jobs[i].qry) for i in sub), 1)
+        scratch = walk_ckpt_device_bytes(m, R, B, ckpt_windows(R_cap, B)) if ckpt else 0
         return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + scratch
 
     def _run_planned(self, jobs, planned, edits, boundary, overflow) -> None:

@@ -44,9 +44,13 @@ _ARGTYPES = {
     # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B, m, stream
     "stripe_dp_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B,
-    # scratch, grid, K, rows, words, n_events, meta, m, stream
-    "walk_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # scratch, S, p_lo, p_hi, w_lo, w_hi, stream
+    "walk_ckpt_rederive_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _P, _I, _I, _I, _I, _I, _P],
+    # rlen, qlen, ms, W, ckpt, n_windows, WV, B, scratch, S, p_lo, p_hi, w_lo, w_hi, state,
+    # first, last, K, rows, words, n_events, meta, stream
+    "walk_ckpt_walk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                              _I, _I, _I, _P, _P, _P, _P, _P],
     # codes, L_pad, m, k, w, val, ps, stream
     "sketch_launch": [_P, _I64, _I, _I, _I, _P, _P, _P],
     # r, q, offsets, n_sets, k, max_gap, bw, H, f, parent, stream

@@ -82,25 +82,26 @@ def _count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-# DP launch log, off unless a caller sets it to a list: each DP launch then
-# appends (name, B, R, problems, start, end), a CUDA event pair recorded on
-# the launch's stream around the kernel. Nothing here synchronizes; the
-# caller reads the events after its own synchronize.
-DP_TIMING = None
+# Kernel launch log, off unless a caller sets it to a list: each launch of
+# the DP, the walk or the checkpoint pair then appends (name, B, R,
+# problems, start, end), a CUDA event pair recorded on the launch's stream
+# around the kernel. Nothing here synchronizes; the caller reads the events
+# after its own synchronize.
+KERNEL_TIMING = None
 
 
-def _dp_events(device):
-    if DP_TIMING is None:
+def _launch_events(device):
+    if KERNEL_TIMING is None:
         return None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record(torch.cuda.current_stream(device))
     return start, end
 
 
-def _log_dp(events, name: str, B: int, R: int, m: int, device) -> None:
+def _log_launch(events, name: str, B: int, R: int, m: int, device) -> None:
     if events is not None:
         events[1].record(torch.cuda.current_stream(device))
-        DP_TIMING.append((name, B, R, m, *events))
+        KERNEL_TIMING.append((name, B, R, m, *events))
 
 
 def walk_segment(R_cap: int, B: int) -> int:
@@ -323,13 +324,13 @@ def stripe_dp_cuda(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
         return rec
     lib = cuda_build.lib("stripe_dp.cu")
     with torch.cuda.device(ref.device):
-        ev = _dp_events(ref.device)
+        ev = _launch_events(ref.device)
         rc = lib.stripe_dp_launch(
             _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
             _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(ref.device)),
             _ptr(rec), R, B, m, _stream(ref.device),
         )
-        _log_dp(ev, "stripe_dp", B, R, m, ref.device)
+        _log_launch(ev, "stripe_dp", B, R, m, ref.device)
     if rc != 0:
         raise RuntimeError(f"stripe_dp kernel launch failed: CUDA error {rc}")
     _count_launch("stripe_dp")
@@ -460,10 +461,12 @@ def walk_cuda(rec, rlen, qlen, ms, W, seg: int, K: int):
         return rows, words, nev, meta
     lib = cuda_build.lib("walk.cu")
     with torch.cuda.device(dev):
+        ev = _launch_events(dev)
         rc = lib.walk_launch(
             _ptr(rec), R, B, _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), seg, K,
             _ptr(rows), _ptr(words), _ptr(nev), _ptr(meta), m, _stream(dev),
         )
+        _log_launch(ev, "walk", B, R, m, dev)
     if rc != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {rc}")
     _count_launch("walk")
@@ -491,15 +494,49 @@ def ckpt_windows(R_cap: int, B: int) -> int:
     return -(-R_cap // ckpt_layout(B))
 
 
-# per-block record window of the checkpoint walk, in device memory: the grid
-# is bounded so that all blocks' windows together stay about L2-sized
-WALK_CKPT_SCRATCH_BYTES = 48 << 20
+# device bytes of re-derived windows the checkpoint walk may hold at once; a
+# launch whose windows need more walks them in waves (walk_ckpt_plan)
+WALK_CKPT_SCRATCH_BYTES = 1 << 30
+WALKER_INTS = 10  # the walk's state between waves: csrc/walk_step.cuh's Walker
 
 
-def walk_ckpt_grid(m: int, B: int) -> int:
-    """Blocks of the checkpoint walk for m problems (each walks problems
-    p, p + grid, ...); its scratch is grid * WV * B int16."""
-    return max(1, min(m, WALK_CKPT_SCRATCH_BYTES // (ckpt_layout(B) * B * 2)))
+def walk_ckpt_plan(m: int, R: int, B: int, n_windows: int) -> tuple:
+    """How the checkpoint walk kernel takes a launch of m problems of R rows
+    (ref's width) and n_windows checkpoint windows: (G, S, waves). A wave
+    (p_lo, p_hi, w_lo, w_hi) re-derives windows [w_lo, w_hi) of problems
+    [p_lo, p_hi) into a scratch of S rows of B int16 lanes for each of at
+    most G problems, then walks them. Problems go in groups of G, and a
+    group's waves go top windows first, each window of rows 1..R in exactly
+    one wave. The scratch, G * S * B int16, stays within
+    WALK_CKPT_SCRATCH_BYTES and within the launch's full records,
+    m * R * B int16."""
+    WV = ckpt_layout(B)
+    window_bytes = WV * B * 2
+    if window_bytes > WALK_CKPT_SCRATCH_BYTES:
+        raise ValueError(f"WALK_CKPT_SCRATCH_BYTES={WALK_CKPT_SCRATCH_BYTES} does not hold one window "
+                         f"({window_bytes} bytes at B={B})")
+    n_top = max(1, min(-(-R // WV), n_windows))  # the windows holding rows 1..R
+    G = max(1, min(m, WALK_CKPT_SCRATCH_BYTES // window_bytes))
+    k = min(n_top, WALK_CKPT_SCRATCH_BYTES // (G * window_bytes))
+    S = min(k * WV, R)
+    waves = [(p, min(m, p + G), max(0, w - k), w) for p in range(0, m, G) for w in range(n_top, 0, -k)]
+    return G, S, waves
+
+
+def walk_ckpt_buffers(m: int, R: int, B: int, n_windows: int, device):
+    """What walk_ckpt_cuda allocates for a launch: the scratch of re-derived
+    windows [G, S, B] int16 and the walkers' state [m, WALKER_INTS] int32;
+    and the waves (walk_ckpt_plan)."""
+    G, S, waves = walk_ckpt_plan(m, R, B, n_windows)
+    scratch = torch.empty((G, S, B), dtype=torch.int16, device=device)
+    state = torch.empty((m, WALKER_INTS), dtype=torch.int32, device=device)
+    return scratch, state, waves
+
+
+def walk_ckpt_device_bytes(m: int, R: int, B: int, n_windows: int) -> int:
+    """Device bytes of walk_ckpt_buffers, without allocating them."""
+    G, S, _ = walk_ckpt_plan(m, R, B, n_windows)
+    return G * S * B * 2 + m * WALKER_INTS * 4
 
 
 def _ckpt_windows_for(ref, B: int, R_cap) -> int:
@@ -565,13 +602,13 @@ def stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) 
         return ckpt
     lib = cuda_build.lib("stripe_dp.cu")
     with torch.cuda.device(ref.device):
-        ev = _dp_events(ref.device)
+        ev = _launch_events(ref.device)
         rc = lib.stripe_dp_ckpt_launch(
             _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
             _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(ref.device)),
             _ptr(ckpt), n_windows, ckpt_layout(B), B, m, _stream(ref.device),
         )
-        _log_dp(ev, "stripe_dp_ckpt", B, ref.shape[1], m, ref.device)
+        _log_launch(ev, "stripe_dp_ckpt", B, ref.shape[1], m, ref.device)
     if rc != 0:
         raise RuntimeError(f"stripe_dp_ckpt kernel launch failed: CUDA error {rc}")
     _count_launch("stripe_dp_ckpt")
@@ -678,6 +715,7 @@ def walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
     from pangraph_tpu_torch.ops import cuda_build
 
     m, n_windows, _, B = ckpt.shape
+    R = ref.shape[1]
     dev = ref.device
     rows = torch.empty((m, K), dtype=torch.int32, device=dev)
     words = torch.empty((m, K), dtype=torch.int32, device=dev)
@@ -686,16 +724,31 @@ def walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
     if m == 0:
         return rows, words, nev, meta
     WV = ckpt_layout(B)
-    grid = walk_ckpt_grid(m, B)
-    scratch = torch.empty(grid * WV * B, dtype=torch.int16, device=dev)
+    scratch, state, waves = walk_ckpt_buffers(m, R, B, n_windows, dev)
+    S, top = scratch.shape[1], waves[0][3]
     lib = cuda_build.lib("walk_ckpt.cu")
+    problem_vecs = (_ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W))
     with torch.cuda.device(dev):
-        rc = lib.walk_ckpt_launch(
-            _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0),
-            _ptr(rlen), _ptr(qlen), _ptr(ms), _ptr(W), _ptr(_iupac_on(dev)),
-            _ptr(ckpt), n_windows, WV, B, _ptr(scratch), grid, K,
-            _ptr(rows), _ptr(words), _ptr(nev), _ptr(meta), m, _stream(dev),
-        )
+        ev = _launch_events(dev)
+        for wave in waves:
+            p_lo, p_hi, w_lo, w_hi = wave
+            ev_r = _launch_events(dev)
+            rc = lib.walk_ckpt_rederive_launch(
+                _ptr(ref), ref.stride(0), _ptr(qry), qry.stride(0), *problem_vecs, _ptr(_iupac_on(dev)),
+                _ptr(ckpt), n_windows, WV, B, _ptr(scratch), S, *wave, _stream(dev),
+            )
+            _log_launch(ev_r, "walk_ckpt.rederive", B, R, p_hi - p_lo, dev)
+            if rc != 0:
+                break
+            ev_w = _launch_events(dev)
+            rc = lib.walk_ckpt_walk_launch(
+                *problem_vecs, _ptr(ckpt), n_windows, WV, B, _ptr(scratch), S, *wave, _ptr(state),
+                int(w_hi == top), int(w_lo == 0), K, _ptr(rows), _ptr(words), _ptr(nev), _ptr(meta), _stream(dev),
+            )
+            _log_launch(ev_w, "walk_ckpt.walk", B, R, p_hi - p_lo, dev)
+            if rc != 0:
+                break
+        _log_launch(ev, "walk_ckpt", B, R, m, dev)
     if rc != 0:
         raise RuntimeError(f"walk_ckpt kernel launch failed: CUDA error {rc}")
     _count_launch("walk_ckpt")

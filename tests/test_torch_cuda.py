@@ -93,17 +93,37 @@ def test_kernels_match_plain_versions(B, R):
     assert sv.LAUNCHES["walk"] == before["walk"] + 2
 
 
-@pytest.mark.parametrize("B,R", [(128, 5000), (256, 3000), (2048, 1200)])
-def test_ckpt_kernels_match_plain_versions(B, R):
+def deletion_on_window_edge(rng, B: int, dl: int = 5):
+    """tests/test_torch_stripe_ckpt.py's deletion that ends on a window edge,
+    at band width B: the walk comes down a match run, then deletes rows
+    WV + dl .. WV + 1 and stops on window 0's top edge."""
+    WV = sv.ckpt_layout(B)
+    r = ACGT[rng.integers(0, 4, 3000)]
+    # a unique placement: the deletion cannot shift by one either way
+    r[WV + dl] = ACGT[(np.searchsorted(ACGT, r[WV]) + 1) % 4]
+    r[WV + dl - 1] = ACGT[(np.searchsorted(ACGT, r[WV - 1]) + 1) % 4]
+    return r, np.concatenate([r[:WV], r[WV + dl :]]), 0
+
+
+@pytest.mark.parametrize("B,R,budget_windows", [
+    pytest.param(128, 5000, None, id="128-5000"), pytest.param(256, 3000, None, id="256-3000"),
+    pytest.param(2048, 1200, None, id="2048-1200"), pytest.param(128, 5000, 3, id="128-5000-waves"),
+    pytest.param(2048, 1200, 2, id="2048-1200-waves")])
+def test_ckpt_kernels_match_plain_versions(B, R, budget_windows, monkeypatch):
     """The checkpoint pair on the card against its plain versions (carries of
     every window that starts at or below rlen, events and meta), and its
-    events against the v2 kernels' on the same batch."""
+    events against the v2 kernels' on the same batch. The batch ends with a
+    deletion that ends on a window edge; with budget_windows, the walk's
+    scratch holds that many windows, so its windows go in several waves."""
     need_cuda()
     rng = np.random.default_rng(7 * B + R)
-    t = batch(pairs(rng, 12, R // 2, R), B)
+    t = batch(pairs(rng, 12, R // 2, R) + [deletion_on_window_edge(rng, B)], B)
     tc = [x.cuda() for x in t]
     R_cap, K = 8192, 512
     WV = sv.ckpt_layout(B)
+    if budget_windows:
+        monkeypatch.setattr(sv, "WALK_CKPT_SCRATCH_BYTES", budget_windows * WV * B * 2)
+        assert len(sv.walk_ckpt_plan(len(t[2]), t[0].shape[1], B, sv.ckpt_windows(R_cap, B))[2]) > 5
     before = dict(sv.LAUNCHES)
     ck_plain = sv.stripe_dp_ckpt(*t, B, R_cap)
     ck = sv.stripe_dp_ckpt(*tc, B, R_cap).cpu()
@@ -117,6 +137,7 @@ def test_ckpt_kernels_match_plain_versions(B, R):
         n = min(int(want[2][s]), K)
         for a in (0, 1):
             assert torch.equal(got[a][s, :n], want[a][s, :n]) and torch.equal(got[a][s, :n], v2[a][s, :n])
+    assert got[2][-1] == 1 and got[0][-1, 0] == WV and got[1][-1, 0] == 2 | 5 << 17  # the deletion, at row WV
     assert sv.LAUNCHES["stripe_dp_ckpt"] == before["stripe_dp_ckpt"] + 1
     assert sv.LAUNCHES["walk_ckpt"] == before["walk_ckpt"] + 1
 

@@ -355,3 +355,63 @@ def test_align_many_on_the_ckpt_route():
     for a, b, j in zip(ck, v2, jobs):
         assert np.array_equal(a.apply(j.ref), j.qry)
         assert a == b
+
+
+# ------------------------------------------------------------------ the walk's waves
+
+
+@pytest.mark.parametrize("m,R,B,budget_windows", [
+    (4, 65536, 128, None),  # the long-tier path's shapes: one wave, the full records
+    (4, 131072, 1920, None),  # two waves
+    (32, 2_097_152, 128, None),  # the Mbp shape: sixteen waves
+    (3000, 4096, 128, None),  # more problems than the budget's windows: two groups
+    (13, 5000, 128, 3),
+    (13, 3000, 2048, 2),
+    (5, 1000, 2048, 100),
+    (2, 0, 256, None),  # no rows: one wave that only starts and finishes the walkers
+])
+def test_walk_ckpt_wave_plan(monkeypatch, m, R, B, budget_windows):
+    """walk_ckpt_plan covers each window that holds rows of each problem once,
+    top windows first within a group of problems; each wave's rows fit its
+    scratch, which stays within the budget and within the launch's full
+    records; and walk_ckpt_device_bytes is what walk_ckpt_buffers allocates."""
+    WV = sv.ckpt_layout(B)
+    if budget_windows:
+        monkeypatch.setattr(sv, "WALK_CKPT_SCRATCH_BYTES", budget_windows * WV * B * 2)
+    n_windows = sv.ckpt_windows(max(R, 1), B)
+    G, S, waves = sv.walk_ckpt_plan(m, R, B, n_windows)
+    assert G * S * B * 2 <= sv.WALK_CKPT_SCRATCH_BYTES and G * S <= m * R
+    n_top = max(1, -(-R // WV))
+    seen = {}
+    for p_lo, p_hi, w_lo, w_hi in waves:
+        assert 0 <= p_lo < p_hi <= p_lo + G and p_hi <= m and 0 <= w_lo < w_hi <= n_top
+        assert min(w_hi * WV, R) - w_lo * WV <= S  # the wave's rows fit the scratch
+        group = seen.setdefault((p_lo, p_hi), [])
+        assert not group or group[-1][0] == w_hi  # top first, each window once
+        group.append((w_lo, w_hi))
+    groups = sorted(seen)
+    assert groups[0][0] == 0 and groups[-1][1] == m and all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    assert all(g[0][1] == n_top and g[-1][0] == 0 for g in seen.values())
+    assert list(seen) == groups  # a group's waves run before the next group's
+    if G * S * B * 2 < 64 << 20:
+        scratch, state, got = sv.walk_ckpt_buffers(m, R, B, n_windows, "cpu")
+        assert got == waves and scratch.shape == (G, S, B)
+        assert scratch.nbytes + state.nbytes == sv.walk_ckpt_device_bytes(m, R, B, n_windows)
+
+
+def test_launch_bytes_charge_the_walk_scratch(monkeypatch):
+    """A checkpoint launch's device bytes are its carries and input rows and
+    exactly what walk_ckpt_cuda allocates for its walk (scratch and walker
+    state, walk_ckpt_buffers), at the default budget and at one that forces
+    waves; a v2 launch's are its records."""
+    jobs = routing_jobs()
+    al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu")
+    sub = [0, 1, 4]
+    R = max(len(jobs[i].ref) for i in sub)
+    Q = max(len(jobs[i].qry) for i in sub)
+    for budget in (sv.WALK_CKPT_SCRATCH_BYTES, 3 * sv.ckpt_layout(128) * 128 * 2):
+        monkeypatch.setattr(sv, "WALK_CKPT_SCRATCH_BYTES", budget)
+        scratch, state, _waves = sv.walk_ckpt_buffers(len(sub), R, 128, sv.ckpt_windows(10240, 128), "cpu")
+        carries = len(sub) * al._problem_bytes(10240, 128, True, R, Q)
+        assert al._launch_bytes(jobs, sub, 10240, 128, True) == carries + scratch.nbytes + state.nbytes
+    assert al._launch_bytes(jobs, sub, 10240, 128, False) == len(sub) * R * 128 * 2
