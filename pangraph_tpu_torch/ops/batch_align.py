@@ -46,7 +46,7 @@ from pangraph_tpu_torch.ops.stripe_v2 import (
     edit_from_events,
     stripe_align,
     stripe_align_ckpt,
-    walk_ckpt_device_bytes,
+    walk_ckpt_buffers,
     walk_segment,
 )
 from pangraph_tpu_torch.utils import trace
@@ -544,8 +544,8 @@ class BatchAligner:
         m = len(sub)
         R = max(max(len(jobs[i].ref) for i in sub), 1)
         Q = max(max(len(jobs[i].qry) for i in sub), 1)
-        scratch = walk_ckpt_device_bytes(m, R, B, ckpt_windows(R_cap, B)) if ckpt else 0
-        return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + scratch
+        walk = walk_ckpt_buffers(m, R, B, ckpt_windows(R_cap, B), "meta")[:2] if ckpt else ()
+        return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + sum(t.nbytes for t in walk)
 
     def _run_planned(self, jobs, planned, edits, boundary, overflow) -> None:
         # one grant per round: launches run one after another on the stream,

@@ -526,17 +526,12 @@ def walk_ckpt_plan(m: int, R: int, B: int, n_windows: int) -> tuple:
 def walk_ckpt_buffers(m: int, R: int, B: int, n_windows: int, device):
     """What walk_ckpt_cuda allocates for a launch: the scratch of re-derived
     windows [G, S, B] int16 and the walkers' state [m, WALKER_INTS] int32;
-    and the waves (walk_ckpt_plan)."""
+    and the waves (walk_ckpt_plan). On the "meta" device it allocates
+    nothing and gives the sizes."""
     G, S, waves = walk_ckpt_plan(m, R, B, n_windows)
     scratch = torch.empty((G, S, B), dtype=torch.int16, device=device)
     state = torch.empty((m, WALKER_INTS), dtype=torch.int32, device=device)
     return scratch, state, waves
-
-
-def walk_ckpt_device_bytes(m: int, R: int, B: int, n_windows: int) -> int:
-    """Device bytes of walk_ckpt_buffers, without allocating them."""
-    G, S, _ = walk_ckpt_plan(m, R, B, n_windows)
-    return G * S * B * 2 + m * WALKER_INTS * 4
 
 
 def _ckpt_windows_for(ref, B: int, R_cap) -> int:

@@ -374,7 +374,8 @@ def test_walk_ckpt_wave_plan(monkeypatch, m, R, B, budget_windows):
     """walk_ckpt_plan covers each window that holds rows of each problem once,
     top windows first within a group of problems; each wave's rows fit its
     scratch, which stays within the budget and within the launch's full
-    records; and walk_ckpt_device_bytes is what walk_ckpt_buffers allocates."""
+    records; and walk_ckpt_buffers allocates that scratch and the walkers'
+    state."""
     WV = sv.ckpt_layout(B)
     if budget_windows:
         monkeypatch.setattr(sv, "WALK_CKPT_SCRATCH_BYTES", budget_windows * WV * B * 2)
@@ -393,10 +394,8 @@ def test_walk_ckpt_wave_plan(monkeypatch, m, R, B, budget_windows):
     assert groups[0][0] == 0 and groups[-1][1] == m and all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
     assert all(g[0][1] == n_top and g[-1][0] == 0 for g in seen.values())
     assert list(seen) == groups  # a group's waves run before the next group's
-    if G * S * B * 2 < 64 << 20:
-        scratch, state, got = sv.walk_ckpt_buffers(m, R, B, n_windows, "cpu")
-        assert got == waves and scratch.shape == (G, S, B)
-        assert scratch.nbytes + state.nbytes == sv.walk_ckpt_device_bytes(m, R, B, n_windows)
+    scratch, state, got = sv.walk_ckpt_buffers(m, R, B, n_windows, "meta")
+    assert got == waves and scratch.shape == (G, S, B) and state.shape == (m, sv.WALKER_INTS)
 
 
 def test_launch_bytes_charge_the_walk_scratch(monkeypatch):
