@@ -162,7 +162,8 @@ WALK_OPS_PER_MOVE = 35
 # dependent load (with the move's few dozen operations behind it). Assumed,
 # not measured: 300 cycles, about an L2 hit's latency on Hopper as published
 # microbenchmarks give it; a load that misses L2 costs more. Problems walk at
-# once, one thread each, so a launch takes at least its longest walk's.
+# once (one thread or one warp each), so a launch takes at least its
+# longest walk's.
 DEP_LOAD_CYCLES = 300
 # (k, w) of phase 3c's sketch batches; rows per batch; row lengths (bp)
 SKETCH_PARAMS = [(15, 100), (19, 19), (7, 5)]
