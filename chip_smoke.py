@@ -12,13 +12,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    with indels, IUPAC codes, N and shifted bands: the stripe DP and its walk
    at band widths B in {128, 256, 2048} and record rows R in {4096, 10240},
    and at B 384 and 512 at R 4096 (B 256 and 384 are the two sides of the
-   DP's switch from a warp to a block a problem) (records and events equal
-   element for element), and the checkpoint pair
+   DP's switch from a warp to a block a problem), and at B 512, R 10240 on
+   pairs with indels of 20-120 bp, so that the walk reads gap runs longer
+   than a warp (records and events equal element for element), and the
+   checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
    (B 1920, R 131072) and (B 2048, R 10240) (carries, events and meta equal
    element for element; events also equal the v2 kernels'); kernel and plain
    times are printed, with the checkpoint walk's waves and the device ms of
-   its re-derive and walk launches apart, and each walk's dependency bound;
+   its re-derive and walk launches apart, and each walk's dependency bound
+   and cycles a dependent read;
 3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),
    kernels only: its events must equal the v2 kernels' on the same batch;
    both routes are timed, with their carry and record bytes, and the
@@ -27,7 +30,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    the sketch on random code batches with N and lowercase (8 and 9 rows of
    150-300 kbp) at (k, w) = (15, 100), (19, 19) and (7, 5), dense outputs
    equal element for element; the chain DP on random anchor clouds of 4,100
-   and 20,000 anchors, f and parent equal; kernel and plain times printed;
+   and 20,000 anchors, f and parent equal; kernel and plain times printed,
+   with cycles a step;
 4. the main path: `build -c -f -j 2 --device cuda` through the CLI on the
    headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
    with an exact roundtrip, the DP and walk launched, the checkpoint pair
@@ -37,7 +41,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    QUALITY_TOLERANCE of them; the kernels' launch log
    (stripe_v2.KERNEL_TIMING) gives each DP and walk kernel's launches and
    summed device ms, per band width B, and a histogram of problems per
-   launch for each B;
+   launch for each B; the build runs under torch.profiler (CUDA activity
+   only), which adds each kernel's summed kernel-only ms and the card's busy
+   share of the wall (kernels, copies and memsets);
 5. the long-tier path: the same build with PANGRAPH_TPU_CKPT_BYTES=32000000,
    which sends the tiers whose per-problem records pass 32 MB (counted as
    the reference counts them) to the checkpoint pair: exact roundtrip, all
@@ -53,7 +59,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    in one launch, f and parent equal to the host C++ chain DP for every
    group; then both kernels' outputs held against their plain versions on
    the card on the same inputs (all ten genomes at both parameter sets, all
-   90 groups); kernel times beside the host engines' times for the same work.
+   90 groups); kernel times, and the chain's cycles a step, beside the host
+   engines' times for the same work.
+
+Kernel times are CUDA event pairs over TIMED_REPS launches, except the
+walk's and the chain's, whose wrappers wait on the host: theirs are
+kernel-only, from torch.profiler's kernel records (_kernel_ms).
 
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, its worst error against its plain version, its
@@ -63,6 +74,7 @@ limit; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -84,9 +96,18 @@ QUALITY_TOLERANCE = {"n_blocks": 0.01, "core_fraction": 0.01, "pangenome_bp": 0.
 # one warp a problem to one block a problem (DP_WARP_MAX_B)
 KERNEL_SHAPES = [(128, 4096, 256), (128, 10240, 256), (256, 4096, 128), (256, 10240, 128),
                  (384, 4096, 64), (512, 4096, 32), (2048, 4096, 32), (2048, 10240, 32)]
+# and one shape whose pairs take indels of 20-120 bp (balanced, so that they
+# stay inside the band), so that the walk reads gap runs longer than a warp
+LONG_INDEL_SHAPE = (512, 10240, 32)
+LONG_INDELS = {"indel_every": 1000, "balanced": True, "indel_len": (20, 121)}
 PLAIN_WALK_PROBLEMS = 16
 WALK_K = 256
 TIMED_REPS = 5
+# the walk and chain kernels' names in a profiler trace (_kernel_ms): their
+# times there are kernel-only, since their wrappers synchronize on the host
+WALK_KERNEL = "::walk_v2_kernel("
+CHAIN_KERNEL = "::chain_kernel("
+PROFILE_TRIES = 3
 # (B, R, problems): the shapes the long-tier path (phase 5) gives the pair:
 # its 65,536 tier at B 128, its 131,072 tier at its widest band, and its
 # 10,240 tier at the kernel's widest band; R is the tier, the problems' rows
@@ -254,11 +275,12 @@ def phase_build() -> None:
                 say("ptxas", source=src, info=repr(line.strip()))
 
 
-def _mutate(ref, rng, indel_every: int = 400, balanced: bool = False):
+def _mutate(ref, rng, indel_every: int = 400, balanced: bool = False, indel_len: tuple = (1, 9)):
     """A related query: ~1% substitutions (some IUPAC codes and N) and an
-    indel of 1-8 bp every `indel_every` bp on average; with `balanced`,
-    deletions and insertions alternate at equal lengths, so that the pair
-    stays near its diagonal over Mbp."""
+    indel of indel_len[0] to indel_len[1] - 1 bp (1-8 by default) every
+    `indel_every` bp on average; with `balanced`, deletions and insertions
+    alternate at equal lengths, so that the pair stays near its diagonal
+    over Mbp, or, with long indels, inside its band."""
     q = ref.copy()
     n = len(q)
     idx = rng.choice(n, n // 100, replace=False)
@@ -271,7 +293,7 @@ def _mutate(ref, rng, indel_every: int = 400, balanced: bool = False):
             continue
         parts.append(q[prev:p])
         if not (balanced and t % 2):
-            L = int(rng.integers(1, 9))
+            L = int(rng.integers(*indel_len))
         if (t % 2 == 0) if balanced else rng.random() < 0.5:
             prev = p + L  # deletion
         else:
@@ -320,6 +342,44 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _trace_events(prof) -> list:
+    """The events of a finished torch.profiler session, from its chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+
+
+def _kernel_ms(torch, fn, reps: int, name: str) -> float:
+    """Kernel-only device ms a call of fn (one launch of the kernel whose
+    name holds `name`), the mean of torch.profiler's kernel records (CUDA
+    activity only) over reps calls after a warm-up. Unlike _event_ms, it
+    leaves out the host's time between launches, which a launch of a few
+    microseconds does not hide. The profiler can lose kernel records (on an
+    H100, now one of five, now all of a session), so a session
+    that kept fewer than reps is run again, up to PROFILE_TRIES times, and
+    the mean is over the records of the fullest one."""
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [float(e.get("dur", 0)) for e in _trace_events(prof)
+                if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel" and name in str(e.get("name", ""))]
+        if len(durs) > reps:
+            raise AssertionError(f"the profiler saw {len(durs)} launches of {name} in {reps} calls")
+        best = max(best, durs, key=len)
+        if len(best) == reps:
+            break
+    if not best:
+        raise AssertionError(f"the profiler kept no launch of {name} in {PROFILE_TRIES} sessions")
+    return sum(best) / len(best) / 1e3
+
+
 def _host_ms(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -352,10 +412,12 @@ def _dp_work(rlen, qlen, B: int) -> tuple:
 
 
 def _walk_reads(out, rlen, K: int, jump_rows: int = None) -> np.ndarray:
-    """A lower bound on each problem's record reads, from its events and
-    meta: one per deleted row and one per inserted query letter (each is a
-    move), and, for a walk whose match jumps cover at most jump_rows rows
-    (the v2 walk: the records' run cap or its segment, whichever is less),
+    """A lower bound on each problem's dependent record reads, from its
+    events and meta, that any walk design needs: one per gap run (a deletion
+    event, an insertion attached to an event, a pending insertion), since a
+    run's first cell must be read before its length is known, and, for a
+    walk whose match jumps cover at most jump_rows rows (the v2 walk: the
+    records' run cap or its segment, whichever is less),
     ceil((rlen - deleted rows) / jump_rows) jumps where the walk reached row
     0. The checkpoint walk's carried runs cross rows without a read, so it
     is given no jump term."""
@@ -363,8 +425,9 @@ def _walk_reads(out, rlen, K: int, jump_rows: int = None) -> np.ndarray:
     reads = np.zeros(len(rlen), np.int64)
     for s in range(len(rlen)):
         w = words[s, : min(int(nev[s]), K)].astype(np.int64)
-        deleted = int(np.where(w & 3 == 2, w >> 17, 0).sum())
-        reads[s] = deleted + int(((w >> 2) & 0x7FFF).sum()) + int(meta[s, 3])
+        is_d = w & 3 == 2
+        deleted = int(np.where(is_d, w >> 17, 0).sum())
+        reads[s] = int(is_d.sum()) + int((((w >> 2) & 0x7FFF) > 0).sum()) + int(meta[s, 3] > 0)
         if jump_rows and not meta[s, 1]:
             reads[s] += -(-(int(rlen[s]) - deleted) // jump_rows)
     return reads
@@ -381,8 +444,8 @@ def _walk_bound(out, rlen, K: int, jump_rows: int = None, extra_bytes: int = 0, 
     nev = out[2].cpu().numpy()
     events = int(np.minimum(nev, K).sum())
     b = _bound(events * 10 + len(nev) * 36 + extra_bytes, events * WALK_OPS_PER_MOVE + extra_ops)
-    reads = _walk_reads(out, rlen, K, jump_rows)
-    b["dep_bound_ms"] = (dep_cycles + int(reads.max(initial=0)) * DEP_LOAD_CYCLES) / SM_CLOCK_HZ * 1e3
+    b["reads"] = int(_walk_reads(out, rlen, K, jump_rows).max(initial=0))
+    b["dep_bound_ms"] = (dep_cycles + b["reads"] * DEP_LOAD_CYCLES) / SM_CLOCK_HZ * 1e3
     b["binds"] = "dependency" if b["dep_bound_ms"] > b["bound_ms"] else b["bound_by"]
     return b
 
@@ -422,8 +485,9 @@ def phase_kernels(torch) -> dict:
     dev = torch.device("cuda", 0)
     worst = {"stripe_dp": 0, "walk": 0}
     times = {}
-    for shape_i, (B, R, m) in enumerate(KERNEL_SHAPES):
-        arrays = kernel_inputs(B, R, m, seed=100 + shape_i)
+    shapes = [(shape, {}) for shape in KERNEL_SHAPES] + [(LONG_INDEL_SHAPE, LONG_INDELS)]
+    for shape_i, ((B, R, m), mutation) in enumerate(shapes):
+        arrays = kernel_inputs(B, R, m, seed=100 + shape_i, **mutation)
         ref, qry, rlen, qlen, ms, W = (torch.from_numpy(a).to(dev) for a in arrays)
         seg = sv.walk_segment(R, B)
 
@@ -439,26 +503,33 @@ def phase_kernels(torch) -> dict:
         out = sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K)
         n = min(PLAIN_WALK_PROBLEMS, m)
         sub = [t[:n].contiguous() for t in (rec, rlen, qlen, ms, W)]
-        walk_full_ms = _event_ms(torch, lambda: sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K), TIMED_REPS)
-        walk_ms = _event_ms(torch, lambda: sv.walk(*sub, seg, WALK_K), TIMED_REPS)
+        walk_full_ms = _kernel_ms(torch, lambda: sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K), TIMED_REPS,
+                                  WALK_KERNEL)
+        walk_ms = _kernel_ms(torch, lambda: sv.walk(*sub, seg, WALK_K), TIMED_REPS, WALK_KERNEL)
+        walk_event_ms = _event_ms(torch, lambda: sv.walk(*sub, seg, WALK_K), TIMED_REPS)
         plain_walk_ms, out_plain = _host_ms(torch, lambda: sv.walk_plain(*sub, seg, WALK_K))
         walk_err = _walk_err(out, out_plain, n, WALK_K)
         nev_k = out[2].cpu().numpy()
         walk_bound = _walk_bound([x[:n] for x in out], arrays[2][:n], WALK_K, min(sv.RUN_CAP, seg))
+        reads_all = int(_walk_reads(out, arrays[2], WALK_K, min(sv.RUN_CAP, seg)).max(initial=0))
         # every pair whose events decode must decode to its exact edit
         decoded, exact = _decode_all(sv, arrays, out)
 
         worst["stripe_dp"] = max(worst["stripe_dp"], dp_err)
         worst["walk"] = max(worst["walk"], walk_err)
         times[(B, R)] = {"stripe_dp": (dp_ms, plain_dp_ms, dp_bound), "walk": (walk_ms, plain_walk_ms, walk_bound)}
-        say("kernels", B=B, R=R, problems=m, cells=cells, dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1),
+        say("kernels", B=B, R=R, problems=m, long_indels=bool(mutation), cells=cells, dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1),
             dp_gcells_per_s=round(cells / dp_ms / 1e6, 2), dp_bound_ms=round(dp_bound["bound_ms"], 4),
             dp_bound_by=dp_bound["bound_by"], dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4),
             dp_binds=dp_bound["binds"], dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())),
             dp_max_abs_err=dp_err,
-            walk_all_ms=round(walk_full_ms, 4), walk_problems=n, walk_ms=round(walk_ms, 4),
+            walk_all_ms=round(walk_full_ms, 4), walk_all_reads_at_least=reads_all,
+            walk_all_cycles_per_read=round(walk_full_ms * 1e-3 * SM_CLOCK_HZ / max(reads_all, 1)),
+            walk_problems=n, walk_ms=round(walk_ms, 4), walk_event_ms=round(walk_event_ms, 4),
             plain_walk_ms=round(plain_walk_ms, 2), walk_bound_ms=walk_bound["bound_ms"],
             walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 5), walk_binds=walk_bound["binds"],
+            walk_reads_at_least=walk_bound["reads"],
+            walk_cycles_per_read=round(walk_ms * 1e-3 * SM_CLOCK_HZ / max(walk_bound["reads"], 1)),
             walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact)
         if dp_err or walk_err or exact != decoded:
             raise AssertionError(f"kernel disagrees with its plain version at B={B} R={R}")
@@ -570,7 +641,8 @@ def phase_ckpt_kernels(torch) -> dict:
             walk_all_ms=round(walk_all_ms, 3), walk_problems=n, walk_ms=round(walk_ms, 3),
             plain_walk_ms=round(plain_walk_ms, 1), walk_waves=parts["waves"],
             walk_rederive_ms=round(parts["rederive_ms"], 3), walk_walk_ms=round(parts["walk_ms"], 3),
-            walk_rederived_windows_at_least=win,
+            walk_rederived_windows_at_least=win, walk_reads_at_least=walk_bound["reads"],
+            walk_walk_cycles_per_read=round(parts["walk_ms"] * 1e-3 * SM_CLOCK_HZ / max(walk_bound["reads"], 1)),
             walk_bound_ms=round(walk_bound["bound_ms"], 4), walk_bound_by=walk_bound["bound_by"],
             walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 4), walk_binds=walk_bound["binds"],
             walk_max_abs_err=walk_err, max_events=int(out[2].max()), events_differ_from_v2=bad,
@@ -652,13 +724,17 @@ def headline_fasta(path: str) -> int:
     return sum(len(r.seq) for r in recs)
 
 
-def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
+def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile: bool = False) -> dict:
     """`build -c -f -j 2 --device cuda` through the CLI on `fa`, with `env`
     set around it. The launch counts are set to 0 just before and read just
     after; want[name] is True for a kernel that must launch, False for one
     that must not. Prints the aligner's receipts, with the jobs, cells and
     band range per length tier and kernel route (engine_report()'s
-    device_tiers)."""
+    device_tiers). With `profile`, the build runs under torch.profiler (CUDA
+    activity only), and each kernel's line gains its summed kernel-only
+    time from the profiler's kernel records, beside the launch log's event
+    pairs, and a `.device_busy` line gives the card's busy share
+    (device_profile)."""
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
@@ -676,14 +752,18 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
             for mod in (sv, sk, ch):
                 mod.reset_launches()
             sv.KERNEL_TIMING = []
-            t0 = time.time()
+            activities = [torch.profiler.ProfilerActivity.CUDA]
             try:
-                rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar", "-o", out])
-                wall = time.time() - t0
-                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=activities) if profile else contextlib.nullcontext() as prof:
+                    t0 = time.time()
+                    rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar",
+                                   "-o", out])
+                    wall = time.time() - t0
+                    torch.cuda.synchronize()
                 kernel_log = launch_log_summary(sv.KERNEL_TIMING)
             finally:
                 sv.KERNEL_TIMING = None
+            device = device_profile(_trace_events(prof), wall) if profile else None
             launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
             report = BatchAligner.engine_report()
             if rc != 0:
@@ -699,10 +779,21 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
     for name, s in kernel_log.items():
+        profiled = {}
+        if device is not None:
+            d = device["kernels"].get(name, {"records": 0, "ms": 0.0})
+            profiled = {"kernel_only_ms": round(d["ms"], 3), "kernel_records": d["records"]}
         say(f"{phase}.{'dp' if name.startswith('stripe_dp') else 'walk'}_device", kernel=name,
-            launches=s["launches"], device_ms=round(s["ms"], 3),
+            launches=s["launches"], device_ms=round(s["ms"], 3), **profiled,
             device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
             problems_per_launch_by_B=json.dumps(s["hist"]))
+    if device is not None:
+        say(f"{phase}.device_busy", wall_s=round(wall, 3), busy_ms=round(device["busy_ms"], 3),
+            busy_share=round(device["busy_share"], 5),
+            other_kernels_ms=round(device["kernels"].get("other_kernels", {}).get("ms", 0.0), 3),
+            copies_ms=round(device["kernels"].get("copies", {}).get("ms", 0.0), 3),
+            records=sum(d["records"] for d in device["kernels"].values()),
+            note="profiled_build_wall_compare_with_the_unprofiled_long_tier_build")
     for name, must in want.items():
         if must and launches[name] <= 0:
             raise AssertionError(f"{phase}: kernel {name} was never launched: {launches}")
@@ -714,7 +805,40 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict) -> dict:
         off = abs(quality[k] - want_q) / (1 if k == "core_fraction" else want_q)
         if off > QUALITY_TOLERANCE[k]:
             raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
-    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log}
+    return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log,
+            "device": device}
+
+
+# The path kernels' names in a profiler trace (csrc/stripe_dp.cu and
+# csrc/walk.cu; the profiled build launches no checkpoint kernel), by the
+# names of stripe_v2.LAUNCHES
+PROFILED_KERNELS = {"::stripe_dp_kernel<": "stripe_dp", WALK_KERNEL: "walk"}
+
+
+def device_profile(events: list, wall_s: float) -> dict:
+    """From a torch.profiler trace's events: per path kernel (PROFILED_KERNELS)
+    its kernel records and summed kernel-only ms, the same for the other
+    kernels together ("other_kernels") and for copies and memsets
+    ("copies"); and the card's busy time, the union of all those intervals,
+    and its share of wall_s."""
+    spans, per = [], {}
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0))
+        spans.append((ts, ts + dur))
+        name = next((v for k, v in PROFILED_KERNELS.items() if k in str(e.get("name", ""))),
+                    "other_kernels" if cat == "kernel" else "copies")
+        d = per.setdefault(name, {"records": 0, "ms": 0.0})
+        d["records"] += 1
+        d["ms"] += dur / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"kernels": per, "busy_ms": busy / 1e3, "busy_share": busy / 1e6 / wall_s}
 
 
 def launch_log_summary(log: list) -> dict:
@@ -834,12 +958,13 @@ def phase_sketch_chain_kernels(torch) -> dict:
         t = _chain_tensors(torch, sets, dev)
         args = (cp.k, cp.max_gap, cp.bw, cp.window)
         got = ch.chain_sets(*t, *args)
-        ms = _event_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS)
+        ms = _kernel_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS, CHAIN_KERNEL)
         plain_ms, want = _host_ms(torch, lambda: ch.chain_sets_plain(*t, *args))
         err = _chain_err(got, want)
         bound = _chain_bound(t[2].cpu().numpy(), cp.window)
         worst["chain"] = max(worst["chain"], err)
-        say("chain_kernel", anchors=n, ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+        say("chain_kernel", anchors=n, ms=round(ms, 4), cycles_per_step=round(ms * 1e-3 * SM_CLOCK_HZ / n),
+            keyed=ch.key_path(t[2].cpu(), cp.k, cp.bw, cp.window).tolist(), plain_ms=round(plain_ms, 2),
             bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
             dep_bound_ms=round(bound["dep_bound_ms"], 5), binds=bound["binds"],
             best_f=int(got[0].max()), chained=int((got[1] >= 0).sum()), max_abs_err=err)
@@ -968,10 +1093,13 @@ def phase_sketch_chain_path(torch, fa: str) -> dict:
     err = _chain_err((torch.from_numpy(f), torch.from_numpy(parent)), [x.cpu() for x in want])
     del want
     torch.cuda.empty_cache()
-    ms = _event_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS)
+    ms = _kernel_ms(torch, lambda: ch.chain_sets(*t, *args), TIMED_REPS, CHAIN_KERNEL)
     bound = _chain_bound(offsets, cp.window)
     out["chain"].update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
-    say("sketch_chain_path.chain_time", kernel_ms=round(ms, 4), plain_ms=round(plain_ms, 2), max_abs_err=err,
+    say("sketch_chain_path.chain_time", kernel_ms=round(ms, 4),
+        cycles_per_step=round(ms * 1e-3 * SM_CLOCK_HZ / int(sizes.max())),
+        keyed_sets=int(ch.key_path(t[2].cpu(), cp.k, cp.bw, cp.window).sum()), plain_ms=round(plain_ms, 2),
+        max_abs_err=err,
         bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"], dep_bound_ms=round(bound["dep_bound_ms"], 5),
         binds=bound["binds"], pairs=bound["pairs"], native_host_ms=round(native_s * 1e3, 2),
         note="native_host_ms_is_host_CPU_time_on_one_thread_not_a_device_time")
@@ -1069,7 +1197,7 @@ def main() -> int:
             t0 = time.time()
             say("headline", input_bp=headline_fasta(fa), setup_s=round(time.time() - t0, 1))
             main_path = phase_build_path(torch, "main_path", fa, {},
-                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False})
+                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False}, profile=True)
             long_tier = phase_build_path(torch, "long_tier", fa, {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
                                          {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
             sc_path = phase_sketch_chain_path(torch, fa)

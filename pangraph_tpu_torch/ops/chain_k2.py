@@ -20,9 +20,10 @@ chains in host C++ (`align/chain.py:chain_anchors`).
 concatenated with int64 offsets [n_sets + 1], and returns f and parent
 (an index within the set) as int32. On a CUDA tensor it launches
 csrc/chain.cu (replacing pangraph_tpu/ops/chain_k2.py:_chain_kernel), one
-warp per set, all sets in one launch; on a CPU tensor it runs
-`chain_sets_plain`. `chain_dp` is the numpy counterpart of
-`chain_dp_pallas`, one set.
+block per set, all sets in one launch, each set in the kernel's keyed loop
+where `key_path` allows it and in its two-reduction loop elsewhere; on a
+CPU tensor it runs `chain_sets_plain`. `chain_dp` is the numpy
+counterpart of `chain_dp_pallas`, one set.
 """
 from __future__ import annotations
 
@@ -36,6 +37,11 @@ from pangraph_tpu_torch.ops import cuda_build
 MAX_H = 1024  # the reference kernel's carry is one 1024-anchor tile: H beyond it is wrong there
 COORD_LIMIT = 1 << 30
 _INT32_MIN = -(1 << 31)
+# The kernel's keyed loop packs 32 * (f - k) and the lane into one int32
+# key (csrc/chain.cu): it holds one predecessor a lane, and 32 * f must stay
+# below 2^31
+KEY_H = 32
+KEY_F_LIMIT = 1 << 26
 
 LAUNCHES = {"chain": 0}  # one is added where the kernel is launched, and nowhere else
 _LAUNCH_LOCK = threading.Lock()
@@ -133,6 +139,20 @@ def chain_sets_plain(r, q, offsets, k: int, max_gap: int, bw: int, H: int):
     return F[live], P[live]
 
 
+def key_path(offsets, k: int, bw: int, H: int) -> torch.Tensor:
+    """Per set of a ragged batch (offsets [n_sets + 1], int64 on the CPU),
+    1 where the chain kernel may take its keyed loop and 0 where it takes
+    its two-reduction loop, as a uint8 tensor [n_sets] on the CPU. The keyed
+    loop needs H <= KEY_H and scores that fit its key: k >= 0 and
+    k * n < KEY_F_LIMIT, since every candidate adds at most k and so
+    f <= k * n; and k * bw < 2^31, so that dd * k does not wrap and no gap
+    is negative."""
+    n = (offsets[1:] - offsets[:-1]).long()
+    if H > KEY_H or k < 0 or k * max(bw, 0) >= 1 << 31:
+        return torch.zeros(len(n), dtype=torch.uint8)
+    return (n * k < KEY_F_LIMIT).to(torch.uint8)
+
+
 def chain_sets(r, q, offsets, k: int, max_gap: int, bw: int, H: int):
     """Chain DP over a ragged batch of anchor sets (see the module
     docstring): (f, parent) int32, parent an index within its set or -1.
@@ -153,10 +173,11 @@ def chain_sets_cuda(r, q, offsets, k: int, max_gap: int, bw: int, H: int):
     parent = torch.empty(N, dtype=torch.int32, device=r.device)
     if N == 0:
         return f, parent
+    keyed = key_path(offsets.cpu(), k, bw, H).to(r.device)
     lib = cuda_build.lib("chain.cu")
     p = cuda_build.ptr
     with torch.cuda.device(r.device):
-        rc = lib.chain_launch(p(r), p(q), p(offsets), S, k, max_gap, bw, H, p(f), p(parent),
+        rc = lib.chain_launch(p(r), p(q), p(offsets), p(keyed), S, k, max_gap, bw, H, p(f), p(parent),
                               cuda_build.stream(r.device))
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")

@@ -53,8 +53,8 @@ _ARGTYPES = {
                               _I, _I, _I, _P, _P, _P, _P, _P],
     # codes, L_pad, m, k, w, val, ps, stream
     "sketch_launch": [_P, _I64, _I, _I, _I, _P, _P, _P],
-    # r, q, offsets, n_sets, k, max_gap, bw, H, f, parent, stream
-    "chain_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # r, q, offsets, keyed, n_sets, k, max_gap, bw, H, f, parent, stream
+    "chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -160,3 +160,51 @@ def test_ragged_batch_equals_one_set_at_a_time():
         f1, p1 = ch.chain_dp(r, q, *ARGS, 32, device="cpu")
         assert np.array_equal(f.numpy()[offsets[s] : offsets[s + 1]], f1)
         assert np.array_equal(parent.numpy()[offsets[s] : offsets[s + 1]], p1)
+
+
+def _ties_and_k_sets():
+    """Hand-made anchor sets (r, q sorted by (r, q)) where candidates tie
+    exactly between predecessors, and where the best candidate equals k (at
+    k = 19): the parent must be the nearest of the tied predecessors, and
+    -1 where no candidate beats k."""
+    # A = (x, x+10) and B = (x+10, x) both reach C = (x+20, x+20) with dr, dq
+    # of 20 and 10 (dd 10, gap 1 + 1): equal candidates, B nearer
+    motif = np.array([[0, 10], [10, 0], [20, 20]], np.int64)
+    ties = np.concatenate([motif + x for x in range(0, 3000, 100)])
+    # (x, x) -> (x+1, x+6): alpha 1, dd 5, gap 0 + 1, so the candidate is
+    # f + 0 = k for a predecessor at f = k; spaced past max_gap so that no
+    # other pair links
+    at_k = np.concatenate([np.array([[0, 0], [1, 6]], np.int64) + x for x in range(0, 400_000, 20_000)])
+    return {"ties": ties, "at_k": at_k, "ties_at_k": np.concatenate([ties, at_k + 100_000])}
+
+
+@pytest.mark.parametrize("name", ["ties", "at_k", "ties_at_k"])
+def test_ties_and_candidates_equal_to_k(name):
+    rq = _ties_and_k_sets()[name]
+    order = np.lexsort((rq[:, 1], rq[:, 0]))
+    r, q = rq[order, 0], rq[order, 1]
+    f, parent = _assert_equals_pallas(r, q)
+    if name == "ties":
+        c = np.arange(2, len(r), 3)  # each motif's C: B is its nearest tied predecessor
+        assert (parent[c] == c - 1).all() and (f[c] > P.k).all()
+    if name == "at_k":
+        assert (f == P.k).all() and (parent == -1).all()
+
+
+def test_key_path_bound():
+    """The chain kernel's keyed loop is taken where H <= 32, k >= 0,
+    k * n < 2^26 and k * bw < 2^31, per set; other sets take its
+    two-reduction loop."""
+    limit = ch.KEY_F_LIMIT // 19  # n * 19 < 2^26 up to here
+    sizes = [0, 1, 500, limit, limit + 1, 4_000_000]
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64))
+    assert 19 * limit < ch.KEY_F_LIMIT <= 19 * (limit + 1)
+    assert ch.key_path(offsets, 19, 1000, 32).tolist() == [1, 1, 1, 1, 0, 0]
+    assert ch.key_path(offsets, 19, 1000, 8).tolist() == [1, 1, 1, 1, 0, 0]
+    assert ch.key_path(offsets, 19, 1000, 33).tolist() == [0] * 6  # H past a warp
+    assert ch.key_path(offsets, -1, 1000, 32).tolist() == [0] * 6  # a negative k
+    assert ch.key_path(offsets, 0, 1000, 32).tolist() == [1] * 6
+    big_bw = (1 << 31) // 19 + 1  # dd * k could wrap
+    assert ch.key_path(offsets, 19, big_bw, 32).tolist() == [0] * 6
+    assert ch.key_path(offsets, 19, big_bw - 1, 32).tolist() == [1, 1, 1, 1, 0, 0]
+    assert ch.key_path(offsets[:1], 19, 1000, 32).shape == (0,)

@@ -93,6 +93,61 @@ def test_kernels_match_plain_versions(B, R):
     assert sv.LAUNCHES["walk"] == before["walk"] + 2
 
 
+def indels(r, rng, edits):
+    """r with (ref position, length) edits applied from the right: length > 0
+    deletes ref[pos:pos+length], length < 0 inserts -length random bases."""
+    q = r.copy()
+    for pos, n in sorted(edits, reverse=True):
+        q = np.concatenate([q[:pos], q[pos + n :]]) if n > 0 else np.concatenate([q[:pos], ACGT[rng.integers(0, 4, -n)], q[pos:]])
+    return q
+
+
+def long_run_pairs(rng, B):
+    """Pairs whose walks take gap runs longer than a warp where the band
+    holds them (tests/test_torch_stripe.py's long-run cases, and a band
+    shifted to its edge): indels of 31, 32, 33 and 70-110 bp, a deletion
+    over rows 991-1070 (across the walk's segment edge at 1024), a deletion
+    down to row 0, a trailing insertion, and a deletion that runs into the
+    band's last lane."""
+    W = (B - 2) // 2
+    out = []
+    for L in (31, 32, 33):
+        r = ACGT[rng.integers(0, 4, 1300)]
+        out.append((r, indels(r, rng, [(400, L), (900, -L)]), 0))
+    r = ACGT[rng.integers(0, 4, 1450)]
+    out.append((r, indels(r, rng, [(300, 70), (800, -110), (1200, 40)]), 0))
+    r = ACGT[rng.integers(0, 4, 1500)]
+    out.append((r, indels(r, rng, [(990, 80), (1300, -80)]), 0))
+    r = ACGT[rng.integers(0, 4, 1100)]
+    out += [(r, r[70:].copy(), 0), (r, np.concatenate([r, ACGT[rng.integers(0, 4, 75)]]), 0)]
+    r = ACGT[rng.integers(0, 4, 1400)]
+    out.append((r, indels(r, rng, [(600, min(150, W))]), W + 18))
+    return out
+
+
+@pytest.mark.parametrize("B", range(128, 2049, 128))
+def test_walk_long_gap_runs_match_plain(B):
+    """The walk kernel, whose gap runs are read a warp's width at a time,
+    against walk_plain on long gap runs at every band width, also with
+    events past K."""
+    need_cuda()
+    t = batch(long_run_pairs(np.random.default_rng(B), B), B)
+    tc = [x.cuda() for x in t]
+    rec = sv.stripe_dp(*tc, B)
+    rec_plain = rec.cpu()
+    seg = sv.walk_segment(3072, B)
+    assert seg == 1024
+    before = sv.LAUNCHES["walk"]
+    for K in (256, 2):
+        got = [x.cpu() for x in sv.walk(rec, *tc[2:], seg, K)]
+        want = sv.walk(rec_plain, *t[2:], seg, K)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        for s in range(len(t[2])):
+            n = min(int(want[2][s]), K)
+            assert torch.equal(got[0][s, :n], want[0][s, :n]) and torch.equal(got[1][s, :n], want[1][s, :n])
+    assert sv.LAUNCHES["walk"] == before + 2
+
+
 def deletion_on_window_edge(rng, B: int, dl: int = 5):
     """tests/test_torch_stripe_ckpt.py's deletion that ends on a window edge,
     at band width B: the walk comes down a match run, then deletes rows
@@ -258,3 +313,22 @@ def test_chain_kernel_matches_plain_version(H):
         f1, p1 = ch.chain_dp(r, q, 19, 10_000, 1_000, H)
         assert np.array_equal(f1, f.cpu().numpy()[o[s] : o[s + 1]])
         assert np.array_equal(p1, parent.cpu().numpy()[o[s] : o[s + 1]])
+
+
+def test_chain_kernel_past_the_key_bound():
+    """At H 32, sets whose k * n passes the keyed loop's bound take the
+    kernel's two-reduction loop, beside sets that take the keyed loop, in
+    one launch; both equal the plain version."""
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+
+    need_cuda()
+    sets = _clouds(np.random.default_rng(3), [4000, 300, 5000, 0, 37])
+    packed = [torch.from_numpy(a) for a in ch.pack_sets(sets)]
+    k = 20_000  # 20,000 * 4,000 anchors passes 2^26
+    assert ch.key_path(packed[2], k, 1000, 32).tolist() == [0, 1, 0, 1, 1]
+    before = ch.LAUNCHES["chain"]
+    f, parent = ch.chain_sets(*(t.cuda() for t in packed), k, 10_000, 1_000, 32)
+    want_f, want_p = ch.chain_sets(*packed, k, 10_000, 1_000, 32)
+    assert torch.equal(f.cpu(), want_f) and torch.equal(parent.cpu(), want_p)
+    assert (want_p >= 0).sum() > 1000  # chains formed
+    assert ch.LAUNCHES["chain"] == before + 1

@@ -237,6 +237,94 @@ def test_tiers_and_bands_match_pallas(name, R_cap, B, n, muts):
         assert_events_equal(port_walks[256], ref_walks[256], s, 256)
 
 
+LONG_RUN_R_CAP = 3072  # walk_segment(3072, 256) is 1024: segment edges at rows 1024 and 2048
+
+
+def _indels(r, rng, edits):
+    """r with (ref position, length) edits applied from the right: length > 0
+    deletes ref[pos:pos+length], length < 0 inserts -length random bases
+    before ref[pos]."""
+    q = r.copy()
+    for pos, n in sorted(edits, reverse=True):
+        q = np.concatenate([q[:pos], q[pos + n :]]) if n > 0 else np.concatenate([q[:pos], ACGT[rng.integers(0, 4, -n)], q[pos:]])
+    return q
+
+
+def _long_run_cases(rng):
+    """(name, ref, qry, mean_shift) at B 256 with gap runs longer than a warp
+    (32 lanes): the cells where a warp-wide read of a run can go wrong."""
+    out = []
+    for L in (31, 32, 33):  # a run one short of a warp, one warp, one past
+        r = ACGT[rng.integers(0, 4, 1300)]
+        out.append((f"indel{L}", r, _indels(r, rng, [(400, L), (900, -L)]), 0))
+    r = ACGT[rng.integers(0, 4, 1450)]
+    out.append(("indel70-110", r, _indels(r, rng, [(300, 70), (800, -110), (1200, 40)]), 0))
+    # a deletion run over rows 991-1070: it crosses the segment edge at 1024
+    r = ACGT[rng.integers(0, 4, 1500)]
+    out.append(("del_across_segment", r, _indels(r, rng, [(990, 80), (1300, -80)]), 0))
+    # the query lacks the ref's first 70 bp: a deletion run down to row 0
+    r = ACGT[rng.integers(0, 4, 1100)]
+    out.append(("del_to_row0", r, r[70:].copy(), 0))
+    # a 75 bp insertion at the query's end: the walk starts in a run
+    r = ACGT[rng.integers(0, 4, 1000)]
+    out.append(("trail_ins75", r, np.concatenate([r, ACGT[rng.integers(0, 4, 75)]]), 0))
+    # a 150 bp deletion in a band shifted to its edge: the walk reads
+    # BOUNDARY cells and dies in the band's last lane
+    r = ACGT[rng.integers(0, 4, 1400)]
+    out.append(("del150_band_edge", r, _indels(r, rng, [(600, 150)]), 145))
+    return out
+
+
+LONG_RUN_CASES = [c[0] for c in _long_run_cases(np.random.default_rng(17))]
+
+
+@pytest.fixture(scope="module")
+def long_runs_256():
+    """The Pallas DP + walk_v2 and stripe_align_v2, and the port's DP + walk
+    and stripe_align, on the long-run batch."""
+    cases = _long_run_cases(np.random.default_rng(17))
+    assert len(cases) == G
+    arrays = _batch(cases, LONG_RUN_R_CAP, 256)
+    ref_seq, qry_seq, rlen, qlen, ms, W = arrays
+    ref = reference_dp_walk(*arrays, LONG_RUN_R_CAP, 256, Ks=(256,))
+    port = port_dp_walk(*arrays, LONG_RUN_R_CAP, 256, Ks=(256,))
+    gmax = rlen.reshape(-1, G).max(axis=1).astype(np.int32)
+    ref_out = ref_sv.stripe_align_v2(ref_seq, qry_seq, rlen, qlen, ms, W, gmax, LONG_RUN_R_CAP, 256, 256, G)
+    port_out = sv.stripe_align(ref_seq, qry_seq[:, : int(qlen.max())], rlen, qlen, ms, W, 256, 256,
+                               sv.walk_segment(LONG_RUN_R_CAP, 256), "cpu")
+    pipelines = ({k: np.asarray(v) for k, v in ref_out.items()}, {k: v.numpy() for k, v in port_out.items()})
+    return cases, ref, port, pipelines
+
+
+@pytest.mark.parametrize("case", LONG_RUN_CASES)
+def test_long_gap_runs_match_pallas(long_runs_256, case):
+    """Gap runs of 31-150 bp at B 256: records, events and meta equal the
+    Pallas kernels', and the port's pipeline gives the reference pipeline's
+    Edit."""
+    cases, (band, ref_walks), (rec, port_walks), (out, port) = long_runs_256
+    s = LONG_RUN_CASES.index(case)
+    np.testing.assert_array_equal(rec[s], band[s])
+    assert_events_equal(port_walks[256], ref_walks[256], s, 256)
+    r, q = cases[s][1], cases[s][2]
+    e_ref, ok_ref = ref_sv.edit_from_events(out["rows"][s], out["words"][s], out["n_events"][s], out["meta"][s], r, q)
+    e_port, ok_port = sv.edit_from_events(port["rows"][s], port["words"][s], port["n_events"][s], port["meta"][s], r, q)
+    assert ok_port == ok_ref
+    if ok_port:
+        assert as_tuples(e_port) == as_tuples(e_ref)
+        assert np.array_equal(e_port.apply(r), q)
+    words = port_walks[256][1][s, : port_walks[256][2][s]]
+    runs = np.maximum((words >> 2) & 0x7FFF, np.where(words & 3 == 2, words >> 17, 0))
+    if case == "del150_band_edge":
+        assert tuple(port_walks[256][3][s, 1:3]) == (1, 1)  # dead, boundary
+    else:
+        assert runs.max(initial=0) >= 31  # the long run is walked as a run
+    if case == "del_to_row0":
+        assert port_walks[256][0][s, port_walks[256][2][s] - 1] == 0  # flushed at row 0
+    if case == "del_across_segment":
+        x = port_walks[256][0][s, : port_walks[256][2][s]]
+        assert any(x_ < 1024 < x_ + d for x_, d in zip(x, words >> 17) if d)
+
+
 def test_split_match_jump_emits_no_extra_event():
     """A match run longer than 1023 rows crossing segment boundaries: walking
     it in 1024-row segments, in the tier's segments, or in one segment gives
