@@ -17,8 +17,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    than a warp (records and events equal element for element), and the
    checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
-   (B 1920, R 131072) and (B 2048, R 10240) (carries, events and meta equal
-   element for element; events also equal the v2 kernels'); kernel and plain
+   (B 1920, R 131072) and (B 2048, R 10240), every problem through the
+   kernels, whose events must equal the v2 kernels', and two problems of
+   each shape (the one with the most windows among them) through the plain
+   versions too (carries, events and meta equal element for element); kernel and plain
    times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
    and cycles a dependent read;
@@ -31,7 +33,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    150-300 kbp) at (k, w) = (15, 100), (19, 19) and (7, 5), dense outputs
    equal element for element; the chain DP on random anchor clouds of 4,100
    and 20,000 anchors, f and parent equal; kernel and plain times printed,
-   with cycles a step;
+   with the chain's cycles a step and the sketch's SM cycles a window start
+   and its bytes and operations bounds;
 4. the main path: `build -c -f -j 2 --device cuda` through the CLI on the
    headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
    with an exact roundtrip, the DP and walk launched, the checkpoint pair
@@ -63,8 +66,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
    engines' times for the same work.
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
-walk's and the chain's, whose wrappers wait on the host: theirs are
-kernel-only, from torch.profiler's kernel records (_kernel_ms).
+walk's, the chain's and the sketch's: theirs are kernel-only, from
+torch.profiler's kernel records (_kernel_ms), since the walk's and chain's
+wrappers wait on the host and the sketch's checks its codes for negative
+values (a reduction and a host read) before each launch; the sketch's event
+pair through its wrapper, which includes that check, is printed beside.
 
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, its worst error against its plain version, its
@@ -113,7 +119,10 @@ PROFILE_TRIES = 3
 # 10,240 tier at the kernel's widest band; R is the tier, the problems' rows
 # are drawn from the tier's range (R/2 to R)
 CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8)]
-PLAIN_CKPT_WALK_PROBLEMS = 4
+# the checkpoint pair's plain versions take minutes a problem at these
+# shapes, so they run on this many of each shape's problems: the one with
+# the most windows and the first of the others (_plain_ckpt_problems)
+PLAIN_CKPT_PROBLEMS = 2
 MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"
@@ -122,7 +131,8 @@ CKPT_OVERRIDE_BYTES = "32000000"
 # boost clock.
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCK_HZ = 1.98e9
-INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+N_SMS = 132
+INT32_OPS_PER_S = N_SMS * 64 * SM_CLOCK_HZ
 # Integer operations per DP cell that the recurrence itself needs, counted
 # from ops/stripe_v2.py:_RowStep at one per add, max, compare, pick, and, or
 # or shift (each issues on the INT32 pipe). Address arithmetic, loads, the
@@ -196,20 +206,33 @@ CHAIN_SIZES = (4100, 20000)  # anchors per random cloud (phase 3c)
 PATH_SKETCH_PARAMS = [(19, 19), (15, 100)]
 # Integer operations per k-mer position that the sketch needs, counted from
 # ops/sketch_k1.py:sketch_dense_plain as if the codes rolled and the window
-# minimum were van Herk / Gil-Werman's; a 64-bit add, shift, xor, and or
-# compare counts as 2 INT32-pipe operations, a 64-bit pick as 2.
+# minimum were van Herk / Gil-Werman's, one per add, shift, xor, and, or,
+# compare or pick of a 32-bit word: (count, whether each acts on the k-mer's
+# 2k-bit word). At k > 16 that word takes two 32-bit words, so those count
+# twice; at k <= 16 one, since the mix is exact in 32-bit words there (its
+# right shifts act on values already masked to 2k <= 32 bits).
 SKETCH_OPS = {
-    "code: valid test, substitute, complement": 3,
-    "forward k-mer, rolled: shift, or, mask (64-bit)": 6,
-    "reverse k-mer, rolled: shift, shift the complement in, or (64-bit)": 6,
-    "valid run: compare, add or reset": 2,
-    "canonical: unsigned compare, equal test, pick (64-bit)": 6,
-    "Jenkins mix: 23 adds, shifts, xors, nots and masks (64-bit)": 46,
-    "sentinel: and, pick (64-bit)": 3,
-    "position and strand: shift, or": 2,
-    "window minimum: 2 running-minimum steps, each a 64-bit compare (2) and a pick of value and position (3)": 10,
+    "code: valid test, substitute, complement": (3, False),
+    "forward k-mer, rolled: shift, or, mask": (3, True),
+    "reverse k-mer, rolled: shift, shift the complement in, or": (3, True),
+    "valid run: compare, add or reset": (2, False),
+    "canonical: unsigned compare, equal test, pick": (3, True),
+    "Jenkins mix: 23 adds, shifts, xors, nots and masks": (23, True),
+    "sentinel: and": (1, False),
+    "sentinel: pick": (1, True),
+    "position and strand: shift, or": (2, False),
+    "window minimum, 2 running-minimum steps: value compare and value pick": (4, True),
+    "window minimum, 2 running-minimum steps: position pick": (2, False),
 }
-SKETCH_OPS_PER_POSITION = sum(SKETCH_OPS.values())
+
+
+def sketch_ops_per_position(k: int) -> int:
+    """SKETCH_OPS summed at k: 84 at k > 16, 47 at k <= 16."""
+    return sum(n * (2 if wide and k > 16 else 1) for n, wide in SKETCH_OPS.values())
+
+
+# the sketch kernel's name in a profiler trace (_kernel_ms)
+SKETCH_KERNEL = "::sketch_kernel"
 # Integer operations per (anchor, predecessor) pair, from
 # ops/chain_k2.py:chain_sets_plain, one per add, compare, min, pick or shift
 CHAIN_OPS = {
@@ -392,7 +415,8 @@ def _bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over its
     memory rate and the integer operations over its int32 throughput."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 def _dp_bound(nbytes: float, ops: float, rlen, B: int) -> dict:
@@ -556,9 +580,16 @@ def _rederived_windows(out, rlen, WV: int, K: int) -> int:
     return total
 
 
-def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: int) -> tuple:
+def _plain_ckpt_problems(rlen) -> list:
+    """The problems the checkpoint pair's plain versions run on: the one
+    with the most windows (the longest) and the first of the others."""
+    top = int(np.argmax(rlen))
+    return [top] + [i for i in range(len(rlen)) if i != top][: PLAIN_CKPT_PROBLEMS - 1]
+
+
+def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: list) -> tuple:
     """Bounds of the checkpoint DP (over all problems) and walk (over the
-    first `problems`): the DP's cells and its live carries written once; the
+    problems listed): the DP's cells and its live carries written once; the
     walk's re-derived windows (their carries and sequence bytes read once,
     their cells recomputed) on top of its events."""
     from pangraph_tpu_torch.ops.stripe_v2 import ckpt_layout
@@ -568,9 +599,9 @@ def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: int) -> 
     in_bytes, cells = _dp_work(rlen, qlen, B)
     live = int((np.minimum(rlen // WV, n_windows - 1) + 1).sum())
     dp = _dp_bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells, rlen, B)
-    sub = [t[:problems] for t in out]
-    win = _rederived_windows(sub, rlen[:problems], WV, K)
-    walk = _walk_bound(sub, rlen[:problems], K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
+    sub = [t[problems] for t in out]
+    win = _rederived_windows(sub, rlen[problems], WV, K)
+    walk = _walk_bound(sub, rlen[problems], K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
                        extra_ops=win * WV * B * DP_OPS_PER_CELL, dep_cycles=WV * dp_row_cycles(B))
     return dp, walk, win
 
@@ -606,27 +637,29 @@ def phase_ckpt_kernels(torch) -> dict:
         WV = sv.ckpt_layout(B)
         n_windows = sv.ckpt_windows(R, B)
 
+        sel = _plain_ckpt_problems(arrays[2])
+        idx = torch.tensor(sel, device=dev)
+        tsel = [x[idx].contiguous() for x in t]
         ck = sv.stripe_dp_ckpt(*t, B, R)
         dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), TIMED_REPS)
-        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*t, B, R))
-        live = torch.arange(n_windows, device=dev)[None, :] * WV <= t[2][:, None].long()
-        diff = (ck - ck_plain).abs()[live]
+        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*tsel, B, R))
+        live = torch.arange(n_windows, device=dev)[None, :] * WV <= tsel[2][:, None].long()
+        diff = (ck[idx] - ck_plain).abs()[live]
         dp_err = int(diff.max()) if diff.numel() else 0
 
         out = sv.walk_ckpt(ck, *t, WALK_K)
-        n = min(PLAIN_CKPT_WALK_PROBLEMS, m)
-        sub = [x[:n].contiguous() for x in [ck] + t]
+        n = len(sel)
+        sub = [ck[idx].contiguous()] + tsel
         walk_all_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, WALK_K), TIMED_REPS)
         walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(*sub, WALK_K), TIMED_REPS)
-        plain_walk_ms, out_plain = _host_ms(
-            torch, lambda: sv.walk_ckpt_plain(ck_plain[:n].contiguous(), *sub[1:], WALK_K))
-        walk_err = _walk_err(out, out_plain, n, WALK_K)
+        plain_walk_ms, out_plain = _host_ms(torch, lambda: sv.walk_ckpt_plain(ck_plain, *tsel, WALK_K))
+        walk_err = _walk_err([x[idx] for x in out], out_plain, n, WALK_K)
         parts = _walk_ckpt_parts(torch, sv, sub, WALK_K)
 
         v2 = sv.walk(sv.stripe_dp(*t, B), *t[2:], sv.walk_segment(R, B), WALK_K)
         bad, bnd = _events_differ(out, v2, WALK_K)
         decoded, exact = _decode_all(sv, arrays, out)
-        dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, WALK_K, n)
+        dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, WALK_K, sel)
 
         worst["stripe_dp_ckpt"] = max(worst["stripe_dp_ckpt"], dp_err)
         worst["walk_ckpt"] = max(worst["walk_ckpt"], walk_err)
@@ -638,7 +671,7 @@ def phase_ckpt_kernels(torch) -> dict:
             dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"],
             dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4), dp_binds=dp_bound["binds"],
             dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())), dp_max_abs_err=dp_err,
-            walk_all_ms=round(walk_all_ms, 3), walk_problems=n, walk_ms=round(walk_ms, 3),
+            plain_problems=json.dumps(sel), walk_all_ms=round(walk_all_ms, 3), walk_ms=round(walk_ms, 3),
             plain_walk_ms=round(plain_walk_ms, 1), walk_waves=parts["waves"],
             walk_rederive_ms=round(parts["rederive_ms"], 3), walk_walk_ms=round(parts["walk_ms"], 3),
             walk_rederived_windows_at_least=win, walk_reads_at_least=walk_bound["reads"],
@@ -683,7 +716,7 @@ def phase_mbp(torch) -> dict:
     del rec
     torch.cuda.empty_cache()
     bad, bnd = _events_differ(out, v2, MBP_K)
-    dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, MBP_K, m)
+    dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, MBP_K, list(range(m)))
     cells = int(arrays[2].sum()) * B
     say("mbp", B=B, R=R, problems=m, windows=n_windows, setup_s=round(setup_s, 1), cells=cells,
         max_events=int(out[2].max()), overflow=int((out[2] > MBP_K).sum()),
@@ -863,13 +896,25 @@ def launch_log_summary(log: list) -> dict:
     return out
 
 
-def _sketch_bound(m: int, L_pad: int, w: int) -> dict:
+def _sketch_bound(m: int, L_pad: int, k: int, w: int) -> dict:
     """The sketch's bound: codes read once (4 B each), 12 B written per
-    window start, SKETCH_OPS_PER_POSITION per k-mer position read."""
+    window start, sketch_ops_per_position(k) per k-mer position read."""
     from pangraph_tpu_torch.ops.sketch_k1 import C
 
     n_out = L_pad - C
-    return _bound(4 * m * L_pad + 12 * m * n_out, SKETCH_OPS_PER_POSITION * m * (n_out + w - 1))
+    return _bound(4 * m * L_pad + 12 * m * n_out, sketch_ops_per_position(k) * m * (n_out + w - 1))
+
+
+def _sketch_bound_kv(bound: dict) -> dict:
+    """The sketch bound's fields for a phase line: both bounds, which binds."""
+    return {"bound_ms": round(bound["bound_ms"], 5), "bytes_bound_ms": round(bound["bytes_ms"], 5),
+            "ops_bound_ms": round(bound["ops_ms"], 5), "bound_by": bound["bound_by"]}
+
+
+def _sketch_cycles(ms: float, windows: int) -> float:
+    """SM cycles a window start: the card's SMs times SM_CLOCK_HZ over the
+    window starts of one launch of `ms`."""
+    return ms * 1e-3 * SM_CLOCK_HZ * N_SMS / windows
 
 
 def _chain_bound(offsets: np.ndarray, H: int) -> dict:
@@ -921,33 +966,62 @@ def _chain_tensors(torch, sets, dev) -> list:
     return [torch.from_numpy(a).to(dev) for a in ch.pack_sets(sets)]
 
 
+def sketch_batches_3c():
+    """Phase 3c's sketch batches: ((k, w), codes) for each of SKETCH_PARAMS
+    at each of SKETCH_ROWS rows of SKETCH_ROW_BP bp, N at 4%, odd rows
+    lowercase, padded with 4."""
+    from pangraph_tpu_torch.graph.seq import TWOBIT
+    from pangraph_tpu_torch.ops.sketch_k1 import C
+
+    acgtn = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    for i, ((k, w), m) in enumerate((p, m) for p in SKETCH_PARAMS for m in SKETCH_ROWS):
+        rng = np.random.default_rng(400 + i)
+        lengths = rng.integers(*SKETCH_ROW_BP, m)
+        L_pad = (int(lengths.max()) // C + 2) * C
+        codes = np.full((m, L_pad), 4, np.int32)
+        for row, n in enumerate(lengths):
+            codes[row, :n] = TWOBIT[acgtn[rng.choice(5, n, p=[0.24] * 4 + [0.04]) + 5 * (row % 2)]]
+        yield (k, w), codes
+
+
+def sketch_codes(seqs: list, k: int, w: int) -> tuple:
+    """The code batch of `seqs` at (k, w), padded as sketch_one pads one
+    sequence (the last window's chunk has its successor): (codes, each
+    row's window count)."""
+    from pangraph_tpu_torch.graph.seq import TWOBIT
+    from pangraph_tpu_torch.ops.sketch_k1 import C
+
+    n_w = [len(x) - k - w + 2 for x in seqs]
+    L_pad = ((max(n_w) + C - 1) // C + 1) * C
+    codes = np.full((len(seqs), L_pad), 4, np.int32)
+    for i, x in enumerate(seqs):
+        codes[i, : len(x)] = TWOBIT[x]
+    return codes, n_w
+
+
 def phase_sketch_chain_kernels(torch) -> dict:
     """The sketch and chain kernels against their plain versions on the card,
     element for element (phase 3c)."""
     from pangraph_tpu_torch.align.chain import ChainParams
-    from pangraph_tpu_torch.graph.seq import TWOBIT
     from pangraph_tpu_torch.ops import chain_k2 as ch
     from pangraph_tpu_torch.ops import sketch_k1 as sk
 
     dev = torch.device("cuda", 0)
     worst = {"sketch": 0, "chain": 0}
-    acgtn = np.frombuffer(b"ACGTNacgtn", np.uint8)
-    for i, ((k, w), m) in enumerate((p, m) for p in SKETCH_PARAMS for m in SKETCH_ROWS):
-        rng = np.random.default_rng(400 + i)
-        lengths = rng.integers(*SKETCH_ROW_BP, m)
-        L_pad = (int(lengths.max()) // sk.C + 2) * sk.C
-        codes = np.full((m, L_pad), 4, np.int32)
-        for row, n in enumerate(lengths):  # N at 4%, odd rows lowercase
-            codes[row, :n] = TWOBIT[acgtn[rng.choice(5, n, p=[0.24] * 4 + [0.04]) + 5 * (row % 2)]]
+    for (k, w), codes in sketch_batches_3c():
+        m, L_pad = codes.shape
         ct = torch.from_numpy(codes).to(dev)
         got = sk.sketch_dense(ct, k, w)
-        ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
+        ms = _kernel_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS, SKETCH_KERNEL)
+        event_ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
         plain_ms, want = _host_ms(torch, lambda: sk.sketch_dense_plain(ct, k, w))
         err = _sketch_err(got, want)
-        bound = _sketch_bound(m, L_pad, w)
+        bound = _sketch_bound(m, L_pad, k, w)
         worst["sketch"] = max(worst["sketch"], err)
-        say("sketch_kernel", k=k, w=w, rows=m, L_pad=L_pad, windows=m * (L_pad - sk.C), ms=round(ms, 4),
-            plain_ms=round(plain_ms, 2), bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+        windows = m * (L_pad - sk.C)
+        say("sketch_kernel", k=k, w=w, rows=m, L_pad=L_pad, windows=windows, kernel_ms=round(ms, 4),
+            event_ms=round(event_ms, 4), cycles_per_window=round(_sketch_cycles(ms, windows), 3),
+            plain_ms=round(plain_ms, 2), **_sketch_bound_kv(bound),
             sentinel_windows=int((got[0] == -1).sum()), max_abs_err=err)
         if err:
             raise AssertionError(f"sketch kernel disagrees with its plain version at k={k} w={w} rows={m}")
@@ -1015,11 +1089,8 @@ def phase_sketch_chain_path(torch, fa: str) -> dict:
     out = {"sketch": {}, "genomes": len(seqs)}
     dense = {}  # (k, w) -> codes and the entry point's (hi, lo, ps)
     for k, w in PATH_SKETCH_PARAMS:
-        n_w = [len(x) - k - w + 2 for x in seqs]
-        L_pad = ((max(n_w) + sk.C - 1) // sk.C + 1) * sk.C
-        codes = np.full((len(seqs), L_pad), 4, np.int32)
-        for i, x in enumerate(seqs):
-            codes[i, : len(x)] = TWOBIT[x]
+        codes, n_w = sketch_codes(seqs, k, w)
+        L_pad = codes.shape[1]
         t0 = time.perf_counter()
         hi, lo, ps = sk.sketch_batch(codes, k, w)
         entry_s = time.perf_counter() - t0
@@ -1079,11 +1150,15 @@ def phase_sketch_chain_path(torch, fa: str) -> dict:
         err = _sketch_err(got, tuple(x.cpu() for x in want))
         del want, got
         torch.cuda.empty_cache()
-        ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
-        bound = _sketch_bound(*ct.shape, w)
+        ms = _kernel_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS, SKETCH_KERNEL)
+        event_ms = _event_ms(torch, lambda: sk.sketch_dense(ct, k, w), TIMED_REPS)
+        bound = _sketch_bound(*ct.shape, k, w)
+        windows = ct.shape[0] * (ct.shape[1] - sk.C)
         out["sketch"][(k, w)].update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
-        say("sketch_chain_path.sketch_time", k=k, w=w, kernel_ms=round(ms, 4), plain_ms=round(plain_ms, 2),
-            max_abs_err=err, bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+        say("sketch_chain_path.sketch_time", k=k, w=w, windows=windows, kernel_ms=round(ms, 4),
+            event_ms=round(event_ms, 4), cycles_per_window=round(_sketch_cycles(ms, windows), 3),
+            share_of_bound=round(bound["bound_ms"] / ms, 4), plain_ms=round(plain_ms, 2),
+            max_abs_err=err, **_sketch_bound_kv(bound),
             native_host_ms=round(out["sketch"][(k, w)]["native_s"] * 1e3, 2),
             note="native_host_ms_is_host_CPU_time_on_one_thread_not_a_device_time")
         if err:
@@ -1140,13 +1215,14 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         if name == "walk":
             problems = min(problems, PLAIN_WALK_PROBLEMS)
         elif name == "walk_ckpt":
-            problems = min(problems, PLAIN_CKPT_WALK_PROBLEMS)
+            problems = min(problems, PLAIN_CKPT_PROBLEMS)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name], "max_abs_err": phase["worst"][name],
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
-            "shape": f"B={shape[0]} R={shape[1]} problems={problems}",
+            "shape": f"B={shape[0]} R={shape[1]} problems={problems}"
+                     + (f" plain_problems={PLAIN_CKPT_PROBLEMS}" if name == "stripe_dp_ckpt" else ""),
         })
         if "dep_bound_ms" in bound:
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])

@@ -1,5 +1,5 @@
-// Minimizer sketch, dense per window start, for Hopper (sm_90a): one block
-// per (row, chunk of C = 512 window starts).
+// Minimizer sketch, dense per window start, for Hopper (sm_90a): one fused
+// launch, one block per (row, tile of window starts).
 //
 // Replaces the Pallas kernel pangraph_tpu/ops/sketch_k1.py:_sketch_kernel.
 // The plain version, pangraph_tpu_torch/ops/sketch_k1.py:sketch_dense_plain,
@@ -14,30 +14,84 @@
 // sentinel window is computed from the substituted codes, as the reference
 // computes it.
 //
-// The reference emulates uint64 with int32 (hi, lo) pairs, builds shifted
-// views with lane rotates and takes the window minimum by offset doubling,
-// all forced by Mosaic. Here: native uint64. The block stages its chunk's
-// codes with the w + k - 2 halo in shared memory, each thread hashes
-// positions into shared memory, then each thread scans its window's w
-// entries left to right with a strict less-than.
-//
-// What bounds it: the window scan, w compares of 64-bit values per window
-// start (100 at the mash parameters), against about 90 integer operations
-// per position for the codes and the hash, and 16 bytes moved per window
-// start. It is bound by operations, most of them the scan. A van Herk /
-// Gil-Werman minimum (a prefix and a suffix running minimum per w-block,
-// three compares per position whatever w) is the later fix; the k-mer codes
-// could also roll instead of being rebuilt from k codes per position.
+// What bounds it: per window start 4 bytes of codes read and 12 written, and
+// about 84 integer operations per k-mer position at k > 16 (47 at k <= 16,
+// where the arithmetic fits 32-bit words): bytes and operations bind about
+// equally. The design keeps every position's work O(1):
+// - a block takes NP = 4096 positions (NP - w + 1 window starts, a multiple
+//   of 4), so the halo of w - 1 positions and k - 1 codes is a few percent;
+//   its codes come in once, in 16-byte loads, as bytes in shared memory;
+// - each thread takes a run of R = 16 consecutive positions and rolls both
+//   strands' k-mer codes along it (k - 1 warm-up steps, then one step a
+//   position); at k <= 16 the codes, the canonical pick and the mix run in
+//   32-bit words, which is exact (every right shift in the mix acts on a
+//   value already masked to 2k <= 32 bits, and the low 32 bits of an add,
+//   not or left shift depend only on the low 32 bits of its operands);
+// - the window minimum is van Herk / Gil-Werman's: the positions are cut
+//   into blocks of w, each position gets the suffix minimum S and the prefix
+//   minimum P of its block, and window c is min(S[c], P[c + w - 1]). Each
+//   thread scans its run in registers; the runs' carries cross threads by a
+//   segmented warp scan (shuffles) and the warps' totals in shared memory;
+// - a key orders by value, then by position, so every minimum is leftmost on
+//   ties without a separate pick: at k <= 23 one 64-bit word, the value
+//   above the local (position << 1 | strand) in 16 bits, with the sentinel's
+//   value field all ones (no 46-bit hash reaches it); at k >= 24 a (value,
+//   position) pair;
+// - P goes to shared memory (padded one key in 16, so that runs of 16 keys
+//   fall on distinct banks), the windows' results replace it there, and the
+//   block writes val and ps out coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int C = 512;  // window starts per block
+constexpr int C = 512;        // the wrapper's chunk: L_pad is a multiple of C
+constexpr int R = 16;         // positions a thread
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int NP = R * THREADS;  // positions a block
+constexpr int NKEYS = NP + NP / R;  // one pad key a run
+constexpr int NCODES = NP + 64;     // a run reads codes [p0, p0 + R + k - 1)
+constexpr int MIN_BLOCKS = 3;       // blocks an SM holds (the registers a thread may take)
 
-__device__ __forceinline__ uint64_t jenkins(uint64_t x, uint64_t m)
+// k <= 23: value << 16 | local (position << 1 | strand); the sentinel's
+// value field is all ones
+struct PackedKey {
+    uint64_t x;
+    static __device__ __forceinline__ PackedKey make(uint64_t h, uint32_t lo) { return {h << 16 | lo}; }
+    static __device__ __forceinline__ PackedKey sentinel(uint32_t lo) { return {0xFFFFFFFFFFFF0000ull | lo}; }
+    static __device__ __forceinline__ PackedKey identity() { return {~0ull}; }
+    __device__ __forceinline__ bool less(const PackedKey& o) const { return x < o.x; }
+    __device__ __forceinline__ uint64_t value() const { return (x >> 16) == 0xFFFFFFFFFFFFull ? ~0ull : x >> 16; }
+    __device__ __forceinline__ uint32_t lo() const { return (uint32_t)x & 0xFFFF; }
+    __device__ __forceinline__ PackedKey shfl_up(int d) const { return {__shfl_up_sync(~0u, x, d)}; }
+    __device__ __forceinline__ PackedKey shfl_down(int d) const { return {__shfl_down_sync(~0u, x, d)}; }
+};
+
+// k >= 24: (value, local position << 1 | strand)
+struct WideKey {
+    uint64_t v;
+    uint32_t l;
+    static __device__ __forceinline__ WideKey make(uint64_t h, uint32_t lo) { return {h, lo}; }
+    static __device__ __forceinline__ WideKey sentinel(uint32_t lo) { return {~0ull, lo}; }
+    static __device__ __forceinline__ WideKey identity() { return {~0ull, ~0u}; }
+    __device__ __forceinline__ bool less(const WideKey& o) const { return v < o.v || (v == o.v && l < o.l); }
+    __device__ __forceinline__ uint64_t value() const { return v; }
+    __device__ __forceinline__ uint32_t lo() const { return l; }
+    __device__ __forceinline__ WideKey shfl_up(int d) const {
+        return {__shfl_up_sync(~0u, v, d), __shfl_up_sync(~0u, l, d)};
+    }
+    __device__ __forceinline__ WideKey shfl_down(int d) const {
+        return {__shfl_down_sync(~0u, v, d), __shfl_down_sync(~0u, l, d)};
+    }
+};
+
+template <class K>
+__device__ __forceinline__ K kmin(const K& a, const K& b) { return b.less(a) ? b : a; }
+
+template <typename U>
+__device__ __forceinline__ U jenkins(U x, U m)
 {
     x = (~x + (x << 21)) & m;
     x = x ^ (x >> 24);
@@ -48,55 +102,188 @@ __device__ __forceinline__ uint64_t jenkins(uint64_t x, uint64_t m)
     return (x + (x << 31)) & m;
 }
 
-__global__ void __launch_bounds__(THREADS) sketch_kernel(
-    const int* __restrict__ codes, long long L_pad, int k, int w, uint64_t mask,
+// A segment of a scan: the minimum since the segment's last reset, and
+// whether a reset lies in it.
+template <class K>
+struct Seg {
+    K a;
+    bool f;
+};
+
+// `e` comes earlier in scan order than `l`
+template <class K>
+__device__ __forceinline__ Seg<K> combine(const Seg<K>& e, const Seg<K>& l)
+{
+    return l.f ? l : Seg<K>{kmin(e.a, l.a), e.f};
+}
+
+// The segmented exclusive scan of the threads' run totals, in thread order
+// (REV false) or against it (REV true): what thread t's first segment in
+// scan order inherits from the threads before it.
+template <bool REV, class K>
+__device__ __forceinline__ K carry_in(Seg<K> x, Seg<K>* wtot)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const Seg<K> o = {REV ? x.a.shfl_down(d) : x.a.shfl_up(d),
+                          (bool)(REV ? __shfl_down_sync(~0u, (int)x.f, d) : __shfl_up_sync(~0u, (int)x.f, d))};
+        if (REV ? lane + d < 32 : lane >= d) x = combine(o, x);
+    }
+    Seg<K> ex = {REV ? x.a.shfl_down(1) : x.a.shfl_up(1),
+                 (bool)(REV ? __shfl_down_sync(~0u, (int)x.f, 1) : __shfl_up_sync(~0u, (int)x.f, 1))};
+    if (lane == (REV ? 31 : 0)) ex = Seg<K>{K::identity(), false};
+    if (lane == (REV ? 0 : 31)) wtot[warp] = x;
+    __syncthreads();
+    Seg<K> acc = {K::identity(), false};
+    if (REV) {
+        for (int j = WARPS - 1; j > warp; j--) acc = combine(acc, wtot[j]);
+    } else {
+        for (int j = 0; j < warp; j++) acc = combine(acc, wtot[j]);
+    }
+    return combine(acc, ex).a;
+}
+
+// U: the word of the k-mer codes and the mix (uint32_t at k <= 16)
+template <typename U, class K>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sketch_kernel(
+    const int* __restrict__ codes, long long L_pad, int k, int w, U mask, int wt, bool aligned,
     long long* __restrict__ val, int* __restrict__ ps)
 {
-    // positions [0, C + w - 1) and their codes [0, C + w + k - 2) fit 2C by
-    // the wrapper's halo check
-    __shared__ uint8_t sc[2 * C];
-    __shared__ uint64_t sh[2 * C];
-    __shared__ uint32_t sp[2 * C];
+    extern __shared__ __align__(16) uint8_t smem[];
+    K* keys = reinterpret_cast<K*>(smem);
+    uint8_t* sc = smem + sizeof(K) * NKEYS;
+    __shared__ Seg<K> wtot[2][WARPS];
 
-    const long long c0 = (long long)blockIdx.x * C;
+    const int tid = threadIdx.x;
     const long long row = blockIdx.y;
     const long long L_out = L_pad - C;
-    const int* crow = codes + row * L_pad + c0;
-    const int npos = C + w - 1;
-    const int ncode = npos + k - 1;
+    const long long c0 = (long long)blockIdx.x * wt;
+    const int nwin = (int)min((long long)wt, L_out - c0);
+    const int* crow = codes + row * L_pad;
 
-    for (int t = threadIdx.x; t < ncode; t += THREADS) {
-        const int c = crow[t];
-        sc[t] = c < 4 ? (uint8_t)c : (uint8_t)4;
+    // codes [c0, c0 + NCODES) as bytes, 4 and up as 4, past the row as 4
+    for (int v = tid; v < NCODES / 4; v += THREADS) {
+        const long long g = c0 + 4 * v;
+        int4 q = make_int4(4, 4, 4, 4);
+        if (g < L_pad) {  // L_pad and c0 are multiples of 4
+            if (aligned) {
+                q = __ldg(reinterpret_cast<const int4*>(crow + g));
+            } else {
+                q = make_int4(__ldg(crow + g), __ldg(crow + g + 1), __ldg(crow + g + 2), __ldg(crow + g + 3));
+            }
+        }
+        const uint32_t b = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8 | min((uint32_t)q.z, 4u) << 16
+                           | min((uint32_t)q.w, 4u) << 24;
+        reinterpret_cast<uint32_t*>(sc)[v] = b;
     }
     __syncthreads();
 
-    for (int p = threadIdx.x; p < npos; p += THREADS) {
-        uint64_t fw = 0, rv = 0;
-        bool ok = true;
-        for (int j = 0; j < k; j++) {
-            const uint32_t c = sc[p + j];
-            const uint64_t b = c < 4 ? c : 0;
-            ok &= c < 4;
-            fw = (fw << 2) | b;
-            rv |= (3ull ^ b) << (2 * j);
-        }
+    // roll both strands' codes along the run; key[i] is position p0 + i's
+    const int p0 = tid * R;
+    const uint8_t* cp = sc + p0;
+    const int rs = 2 * k - 2;
+    U fw = 0, rv = 0;
+    int run = 0;  // valid codes ending at the last one rolled in
+    auto roll = [&](uint32_t c) {
+        const U b = c & 3;  // an invalid code (4) enters as 0
+        fw = ((fw << 2) | b) & mask;
+        rv = (rv >> 2) | ((U)(3 ^ b) << rs);
+        run = c < 4 ? run + 1 : 0;
+    };
+    for (int j = 0; j < k - 1; j++) roll(cp[j]);
+    K key[R];
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        roll(cp[k - 1 + i]);
         const bool is_rev = rv < fw;
-        sh[p] = (ok && rv != fw) ? jenkins(is_rev ? rv : fw, mask) : ~0ull;
-        sp[p] = ((uint32_t)(c0 + p) << 1) | (uint32_t)is_rev;  // int32 bits, as the reference's
+        const uint32_t lo = (uint32_t)(p0 + i) << 1 | (uint32_t)is_rev;
+        key[i] = (run >= k && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, mask), lo)
+                                        : K::sentinel(lo);
+    }
+
+    // w-blocks start where the local position is a multiple of w
+    const int r0 = p0 % w;
+    int first_start = R, last_end = -1;  // first block start, last block end in the run
+    {
+        int r = r0;
+#pragma unroll
+        for (int i = 0; i < R; i++) {
+            if (r == 0 && first_start == R) first_start = i;
+            r = r + 1 == w ? 0 : r + 1;
+            if (r == 0) last_end = i;
+        }
+    }
+
+    // prefix minima (reset at a block start), straight to shared memory;
+    // the run's first segment takes the carry from the threads before
+    K* mine = keys + p0 + tid;  // this run's keys, padded (see keys[j + j / R] below)
+    K pr = key[0];
+    {
+        int r = r0;
+#pragma unroll
+        for (int i = 0; i < R; i++) {
+            if (i > 0) pr = r == 0 ? key[i] : kmin(pr, key[i]);
+            mine[i] = pr;
+            r = r + 1 == w ? 0 : r + 1;
+        }
+    }
+    const K pin = carry_in<false, K>(Seg<K>{pr, first_start < R}, wtot[0]);
+    for (int i = 0; i < first_start; i++) mine[i] = kmin(pin, mine[i]);
+
+    // suffix minima (reset after a block end), in key
+    {
+        int r = (r0 + R - 1) % w;  // position p0 + R - 1's offset in its block
+#pragma unroll
+        for (int i = R - 2; i >= 0; i--) {
+            r = r == 0 ? w - 1 : r - 1;  // position p0 + i's offset
+            if (r != w - 1) key[i] = kmin(key[i + 1], key[i]);
+        }
+    }
+    const K sin = carry_in<true, K>(Seg<K>{key[0], last_end >= 0}, wtot[1]);
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        if (i > last_end) key[i] = kmin(sin, key[i]);
+    }
+    __syncthreads();  // every P is in shared memory
+
+    // window c = p0 + i: min(S[c], P[c + w - 1]), then the results replace P
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        const int q = p0 + i + w - 1;
+        if (p0 + i < nwin) key[i] = kmin(key[i], keys[q + q / R]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        if (p0 + i < nwin) mine[i] = key[i];
     }
     __syncthreads();
 
-    for (int t = threadIdx.x; t < C; t += THREADS) {
-        uint64_t best = sh[t];
-        uint32_t bp = sp[t];
-        for (int d = 1; d < w; d++) {
-            const uint64_t v = sh[t + d];
-            if (v < best) { best = v; bp = sp[t + d]; }
-        }
-        val[row * L_out + c0 + t] = (long long)best;
-        ps[row * L_out + c0 + t] = (int)bp;
+    long long* vrow = val + row * L_out + c0;
+    int* prow = ps + row * L_out + c0;
+    const uint32_t ps0 = (uint32_t)c0 << 1;  // int32 bits, as the reference's
+    for (int j = tid; j < nwin; j += THREADS) {
+        const K x = keys[j + j / R];
+        vrow[j] = (long long)x.value();
+        prow[j] = (int)(ps0 + x.lo());
     }
+}
+
+template <typename U, class K>
+int launch(const void* codes, long long L_pad, int m, int k, int w, U mask, void* val, void* ps, cudaStream_t stream)
+{
+    const size_t shm = sizeof(K) * NKEYS + NCODES;
+    cudaError_t e = cudaFuncSetAttribute(sketch_kernel<U, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (e != cudaSuccess) return (int)e;
+    const int wt = (NP - (w - 1)) & ~3;  // window starts a block, a multiple of 4 for the 16-byte loads
+    const long long L_out = L_pad - C;
+    const dim3 grid((unsigned)((L_out + wt - 1) / wt), (unsigned)m);
+    const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+    sketch_kernel<U, K><<<grid, THREADS, shm, stream>>>(
+        static_cast<const int*>(codes), L_pad, k, w, mask, wt, aligned,
+        static_cast<long long*>(val), static_cast<int*>(ps));
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -108,9 +295,8 @@ extern "C" int sketch_launch(
     if (k < 1 || k > 32 || w < 1 || L_pad % C || L_pad < 2 * C || C + w - 1 + k - 1 > 2 * C || m > 65535)
         return (int)cudaErrorInvalidValue;
     const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-    const dim3 grid((unsigned)(L_pad / C - 1), (unsigned)m);
-    sketch_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(codes), L_pad, k, w, mask,
-        static_cast<long long*>(val), static_cast<int*>(ps));
-    return (int)cudaGetLastError();
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (k <= 16) return launch<uint32_t, PackedKey>(codes, L_pad, m, k, w, (uint32_t)mask, val, ps, s);
+    if (k <= 23) return launch<uint64_t, PackedKey>(codes, L_pad, m, k, w, mask, val, ps, s);
+    return launch<uint64_t, WideKey>(codes, L_pad, m, k, w, mask, val, ps, s);
 }

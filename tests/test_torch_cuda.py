@@ -264,7 +264,13 @@ def _codes(rng, m, L_pad, lengths):
     return codes
 
 
-@pytest.mark.parametrize("k,w", [(15, 100), (19, 19), (7, 5), (32, 40)])
+# beside the main path's parameters: the kernel's switch from 32-bit to 64-bit
+# words (k 16 and 17), from one packed key to a (value, position) pair (k 23
+# and 24, and 25), windows of one and two positions, and the halo limits
+SKETCH_SEAMS = [(16, 2), (17, 1), (23, 2), (24, 1), (25, 100), (19, 367), (32, 354)]
+
+
+@pytest.mark.parametrize("k,w", [(15, 100), (19, 19), (7, 5), (32, 40)] + SKETCH_SEAMS)
 def test_sketch_kernel_matches_plain_version(k, w):
     from pangraph_tpu_torch.ops import sketch_k1 as sk
 
@@ -277,6 +283,37 @@ def test_sketch_kernel_matches_plain_version(k, w):
     want_val, want_ps = sk.sketch_dense(codes, k, w)
     assert torch.equal(val.cpu(), want_val) and torch.equal(ps.cpu(), want_ps)
     assert sk.LAUNCHES["sketch"] == before + 1
+
+
+def _sketch_batch(rng, kind, k):
+    """Code batches whose shapes cross the kernel's tiles: one row of many
+    tiles (its window starts not a multiple of a tile's), several thousand
+    short rows, and rows of all N beside a row of one even-k palindrome
+    repeated (every k-mer its own reverse complement) and random rows."""
+    if kind == "one_long_row":
+        return _codes(rng, 1, 203 * 512, [203 * 512 - 300])
+    if kind == "many_short_rows":
+        return _codes(rng, 3000, 1024, rng.integers(1, 1024, 3000))
+    codes = _codes(rng, 6, 12 * 512, rng.integers(3000, 12 * 512, 6))
+    codes[1:3] = 4  # all N
+    codes[3, :5000] = np.resize([0, 3], 5000)  # ATAT...
+    return codes
+
+
+@pytest.mark.parametrize("kind", ["one_long_row", "many_short_rows", "all_n_and_palindromes"])
+@pytest.mark.parametrize("k,w", [(15, 100), (19, 19), (16, 2), (17, 1), (24, 1), (32, 354)])
+def test_sketch_kernel_tiles_and_edge_rows(k, w, kind):
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+
+    need_cuda()
+    codes = torch.from_numpy(_sketch_batch(np.random.default_rng(7 * k + w), kind, k)).cuda()
+    val, ps = sk.sketch_dense(codes, k, w)
+    want_val, want_ps = sk.sketch_dense_plain(codes, k, w)
+    assert torch.equal(val, want_val) and torch.equal(ps, want_ps)
+    if kind == "all_n_and_palindromes":
+        assert bool((val[1:3] == -1).all())
+        if k % 2 == 0:
+            assert bool((val[3, :4000] == -1).all())
 
 
 def _clouds(rng, sizes, L=2_000_000):

@@ -21,6 +21,10 @@ from pangraph_tpu_torch.ops import sketch_k1 as sk
 
 ACGTN = np.frombuffer(b"ACGTN", np.uint8)
 PARAMS = [(15, 100), (19, 19), (7, 5)]
+# the CUDA kernel's seams: its switch from 32-bit to 64-bit words (k 16,
+# 17), from one packed key to a (value, position) pair (k 23, 24, 25), and
+# windows of one and two positions
+SEAMS = [(16, 2), (17, 1), (23, 2), (24, 1), (25, 2)]
 ROWS = [1, 3, 9]
 
 
@@ -46,7 +50,7 @@ def _batch(k, w, m):
 def dense_refs():
     """{(k, w, m): (codes, the Pallas kernel's (hi, lo, ps))}."""
     out = {}
-    for k, w in PARAMS:
+    for k, w in PARAMS + SEAMS:
         for m in ROWS:
             codes = _batch(k, w, m)
             out[(k, w, m)] = codes, sketch_pallas_batch(codes, k, w)
@@ -54,7 +58,7 @@ def dense_refs():
 
 
 @pytest.mark.parametrize("m", ROWS)
-@pytest.mark.parametrize("k,w", PARAMS)
+@pytest.mark.parametrize("k,w", PARAMS + SEAMS)
 def test_dense_sketch_equals_pallas(dense_refs, k, w, m):
     codes, want = dense_refs[(k, w, m)]
     before = dict(sk.LAUNCHES)
@@ -95,6 +99,25 @@ def test_palindromes_are_skipped():
     want = sketch_pallas_batch(codes, 8, 10)
     for g, r in zip(sk.sketch_batch(codes, 8, 10, device="cpu"), want):
         assert np.array_equal(g, r)
+
+
+@pytest.mark.parametrize("k,w", [(16, 2), (17, 1), (24, 1), (25, 2), (32, 3)])
+def test_edge_rows_equal_pallas(k, w):
+    """A batch of a random row, a row of all N, a row of one even-k
+    palindrome repeated (ATAT...: every k-mer its own reverse complement)
+    and a lowercase row: dense outputs equal the Pallas kernel's."""
+    rng = np.random.default_rng(100 * k + w)
+    codes = np.full((4, 3 * sk.C), 4, np.int32)
+    codes[0, :1400] = TWOBIT[_seq(rng, 1400)]
+    codes[2, :1300] = np.resize([0, 3], 1300)
+    codes[3, :1200] = TWOBIT[_seq(rng, 1200, lower=True)]
+    got = sk.sketch_batch(codes, k, w, device="cpu")
+    for name, g, r in zip(("hi", "lo", "ps"), got, sketch_pallas_batch(codes, k, w)):
+        assert np.array_equal(g, r), name
+    sentinel = (got[0] == -1) & (got[1] == -1)
+    assert sentinel[1].all() and not sentinel[0, :1000].all()
+    if k % 2 == 0:
+        assert sentinel[2, :1000].all()
 
 
 @pytest.mark.parametrize("n", [0, 5, 18, 36, 37, 40])
