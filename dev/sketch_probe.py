@@ -11,8 +11,8 @@ headline's ten genomes at (19, 19) and (15, 100), in SM cycles a window
 start (chip_smoke._sketch_cycles):
 
 - the tree's source, and layouts that keep its algorithm (other blocks an
-  SM, positions a thread, threads a block): these print whether their
-  outputs equal the tree's kernel's;
+  SM, threads a block): these print whether their outputs equal the tree's
+  kernel's;
 - stage probes, whose outputs are wrong by design: the codes loaded and
   written straight out (loads and stores alone); the keys hashed and
   written out with no window minimum (loads, hash and stores); the full
@@ -39,7 +39,7 @@ from pangraph_tpu_torch.ops import cuda_build as cb  # noqa: E402
 from pangraph_tpu_torch.ops import sketch_k1 as sk  # noqa: E402
 
 OUT = os.path.join(os.getcwd(), "_build", "sketch_probe")
-ROLL = "    // roll both strands' codes along the run; key[i] is position p0 + i's\n"
+KEYS = "    // key[i] is position p0 + i's\n"
 BLOCKS = "    // w-blocks start where the local position is a multiple of w\n"
 OUTPUT_LOOP = """
         long long* vrow = val + row * L_out + c0;
@@ -54,35 +54,33 @@ OUTPUT_LOOP = """
 """
 
 
-def layout(r: int, threads: int, min_blocks: int) -> list:
-    return [("constexpr int R = 16;", f"constexpr int R = {r};"),
-            ("constexpr int THREADS = 256;", f"constexpr int THREADS = {threads};"),
+def layout(threads: int, min_blocks: int) -> list:
+    return [("constexpr int THREADS = 256;", f"constexpr int THREADS = {threads};"),
             ("constexpr int MIN_BLOCKS = 3;", f"constexpr int MIN_BLOCKS = {min_blocks};")]
 
 
 # name -> (string edits, whether the outputs must equal the tree's)
 VARIANTS = {
     "tree": ([], True),
-    "min_blocks_2": (layout(16, 256, 2), True),
-    "min_blocks_4": (layout(16, 256, 4), True),
-    "R8_threads512": (layout(8, 512, 2), True),
-    "R16_threads512": (layout(16, 512, 1), True),
-    "R32_threads128": (layout(32, 128, 4), True),
-    "probe_loads_stores": ([(ROLL, """    if (w > 0) {
+    "min_blocks_2": (layout(256, 2), True),
+    "min_blocks_4": (layout(256, 4), True),
+    "threads512": (layout(512, 1), True),
+    "threads128": (layout(128, 6), True),
+    "probe_loads_stores": ([(KEYS, """    if (w > 0) {
         long long* vrow = val + row * L_out + c0;
         int* prow = ps + row * L_out + c0;
         for (int j = tid; j < nwin; j += THREADS) {
-            vrow[j] = sc[j];
+            vrow[j] = F[j >> 4];
             prow[j] = j;
         }
         return;
     }
-""" + ROLL)], False),
+""" + KEYS)], False),
     "probe_hash_stores": ([(BLOCKS, """    if (w > 0) {
 #pragma unroll
         for (int i = 0; i < R; i++) keys[p0 + tid + i] = key[i];
         __syncthreads();""" + OUTPUT_LOOP + BLOCKS)], False),
-    "probe_no_mix": ([("K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, mask), lo)",
+    "probe_no_mix": ([("K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo)",
                        "K::make((uint64_t)(is_rev ? rv : fw), lo)")], False),
 }
 
@@ -111,7 +109,7 @@ def sass_histogram(so: str) -> None:
     for body in out.split("Function : ")[1:]:
         name = body.splitlines()[0].strip()
         ops = collections.Counter(m.group(1).split(".")[0]
-                                  for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", body))
+                                  for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", body))
         print(f"sass kernel={name[-60:]} instructions={sum(ops.values())} top={ops.most_common(24)}", flush=True)
 
 

@@ -18,15 +18,22 @@
 // about 84 integer operations per k-mer position at k > 16 (47 at k <= 16,
 // where the arithmetic fits 32-bit words): bytes and operations bind about
 // equally. The design keeps every position's work O(1):
-// - a block takes NP = 4096 positions (NP - w + 1 window starts, a multiple
-//   of 4), so the halo of w - 1 positions and k - 1 codes is a few percent;
-//   its codes come in once, in 16-byte loads, as bytes in shared memory;
-// - each thread takes a run of R = 16 consecutive positions and rolls both
-//   strands' k-mer codes along it (k - 1 warm-up steps, then one step a
-//   position); at k <= 16 the codes, the canonical pick and the mix run in
+// - a block takes NP = 4096 positions (NP - w + 1 window starts, rounded
+//   down to a multiple of 16), so the halo of w - 1 positions and k - 1
+//   codes is a few percent; its codes come in once, in 16-byte loads, and
+//   go to shared memory as three packed streams of 16 codes a word: the
+//   forward 2-bit codes, first code highest (F); their complements, first
+//   code lowest (G, a bit reverse of ~F with its pairs swapped); and a bit a
+//   code that marks it invalid (I);
+// - each thread takes a run of R = 16 consecutive positions and cuts each
+//   position's k-mer codes out of three words of each stream with funnel
+//   shifts, by amounts known at compile time but for the final align to 2k
+//   bits: O(1) a position whatever k, with no serial chain between
+//   positions; at k <= 16 the codes, the canonical pick and the mix run in
 //   32-bit words, which is exact (every right shift in the mix acts on a
 //   value already masked to 2k <= 32 bits, and the low 32 bits of an add,
-//   not or left shift depend only on the low 32 bits of its operands);
+//   multiply or not depend only on the low 32 bits of its operands); the
+//   mix's shift-adds are multiplies by constants;
 // - the window minimum is van Herk / Gil-Werman's: the positions are cut
 //   into blocks of w, each position gets the suffix minimum S and the prefix
 //   minimum P of its block, and window c is min(S[c], P[c + w - 1]). Each
@@ -52,7 +59,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int NP = R * THREADS;  // positions a block
 constexpr int NKEYS = NP + NP / R;  // one pad key a run
-constexpr int NCODES = NP + 64;     // a run reads codes [p0, p0 + R + k - 1)
+constexpr int NW = NP / 16 + 2;     // stream words: a run reads codes [p0, p0 + R + k - 1), 3 words
 constexpr int MIN_BLOCKS = 3;       // blocks an SM holds (the registers a thread may take)
 
 // k <= 23: value << 16 | local (position << 1 | strand); the sentinel's
@@ -63,7 +70,9 @@ struct PackedKey {
     static __device__ __forceinline__ PackedKey sentinel(uint32_t lo) { return {0xFFFFFFFFFFFF0000ull | lo}; }
     static __device__ __forceinline__ PackedKey identity() { return {~0ull}; }
     __device__ __forceinline__ bool less(const PackedKey& o) const { return x < o.x; }
-    __device__ __forceinline__ uint64_t value() const { return (x >> 16) == 0xFFFFFFFFFFFFull ? ~0ull : x >> 16; }
+    // a valid key's top bit is 0 (its value has at most 46 bits); the
+    // sentinel's arithmetic shift is ~0
+    __device__ __forceinline__ uint64_t value() const { return (uint64_t)((long long)x >> 16); }
     __device__ __forceinline__ uint32_t lo() const { return (uint32_t)x & 0xFFFF; }
     __device__ __forceinline__ PackedKey shfl_up(int d) const { return {__shfl_up_sync(~0u, x, d)}; }
     __device__ __forceinline__ PackedKey shfl_down(int d) const { return {__shfl_down_sync(~0u, x, d)}; }
@@ -93,13 +102,31 @@ __device__ __forceinline__ K kmin(const K& a, const K& b) { return b.less(a) ? b
 template <typename U>
 __device__ __forceinline__ U jenkins(U x, U m)
 {
-    x = (~x + (x << 21)) & m;
+    x = (x * (U)0x1FFFFF - 1) & m;  // ~x + (x << 21)
     x = x ^ (x >> 24);
-    x = (x + (x << 3) + (x << 8)) & m;
+    x = (x * 265) & m;  // x + (x << 3) + (x << 8)
     x = x ^ (x >> 14);
-    x = (x + (x << 2) + (x << 4)) & m;
+    x = (x * 21) & m;  // x + (x << 2) + (x << 4)
     x = x ^ (x >> 28);
-    return (x + (x << 31)) & m;
+    return (x * (U)0x80000001u) & m;  // x + (x << 31)
+}
+
+// k-mer codes of the run's position i from the streams' words 0-2 (see the
+// header), aligned to 2k bits; U of 32 bits at k <= 16. Inside the callers'
+// unrolled loops every shift but the align is a constant.
+template <typename U>
+__device__ __forceinline__ void kmer(const uint32_t (&f)[3], const uint32_t (&g)[3], int i, int k, U mask, U& fw,
+                                     U& rv)
+{
+    if constexpr (sizeof(U) == 4) {
+        fw = __funnelshift_l(f[1], f[0], 2 * i) >> (32 - 2 * k);
+        rv = __funnelshift_r(g[0], g[1], 2 * i) & mask;
+    } else {  // k >= 17: 64 - 2k < 32, and the mask's low word is all ones
+        const uint32_t hi = __funnelshift_l(f[1], f[0], 2 * i), lo = __funnelshift_l(f[2], f[1], 2 * i);
+        const int s = 64 - 2 * k;
+        fw = (U)(hi >> s) << 32 | __funnelshift_r(lo, hi, s);
+        rv = (U)(__funnelshift_r(g[1], g[2], 2 * i) & (uint32_t)(mask >> 32)) << 32 | __funnelshift_r(g[0], g[1], 2 * i);
+    }
 }
 
 // A segment of a scan: the minimum since the segment's last reset, and
@@ -152,7 +179,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sketch_kernel(
 {
     extern __shared__ __align__(16) uint8_t smem[];
     K* keys = reinterpret_cast<K*>(smem);
-    uint8_t* sc = smem + sizeof(K) * NKEYS;
+    uint32_t* F = reinterpret_cast<uint32_t*>(smem + sizeof(K) * NKEYS);
+    uint32_t* G = F + NW;
+    uint16_t* I = reinterpret_cast<uint16_t*>(G + NW);
     __shared__ Seg<K> wtot[2][WARPS];
 
     const int tid = threadIdx.x;
@@ -162,44 +191,48 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sketch_kernel(
     const int nwin = (int)min((long long)wt, L_out - c0);
     const int* crow = codes + row * L_pad;
 
-    // codes [c0, c0 + NCODES) as bytes, 4 and up as 4, past the row as 4
-    for (int v = tid; v < NCODES / 4; v += THREADS) {
-        const long long g = c0 + 4 * v;
-        int4 q = make_int4(4, 4, 4, 4);
-        if (g < L_pad) {  // L_pad and c0 are multiples of 4
-            if (aligned) {
-                q = __ldg(reinterpret_cast<const int4*>(crow + g));
-            } else {
-                q = make_int4(__ldg(crow + g), __ldg(crow + g + 1), __ldg(crow + g + 2), __ldg(crow + g + 3));
+    // codes [c0 + 16 j, c0 + 16 j + 16) to the streams' word j; 4 and up,
+    // and codes past the row, are invalid and enter the k-mers as 0
+    for (int j = tid; j < NW; j += THREADS) {
+        const long long g = c0 + 16LL * j;  // a multiple of 16, as L_pad is
+        uint32_t f = 0, inv = 0xFFFF;
+        if (g < L_pad) {
+            inv = 0;
+#pragma unroll
+            for (int u = 0; u < 4; u++) {
+                const int* at = crow + g + 4 * u;
+                const int4 q = aligned ? __ldg(reinterpret_cast<const int4*>(at))
+                                       : make_int4(__ldg(at), __ldg(at + 1), __ldg(at + 2), __ldg(at + 3));
+                const uint32_t B = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8 | min((uint32_t)q.z, 4u) << 16
+                                   | min((uint32_t)q.w, 4u) << 24;  // a byte a code, 0-4
+                f = f << 8 | ((B & 0x03030303u) * 0x40100401u) >> 24;         // 4 codes, first highest
+                inv |= (((B >> 2) & 0x01010101u) * 0x01020408u) >> 24 << (4 * u);  // a bit a code, first lowest
             }
         }
-        const uint32_t b = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8 | min((uint32_t)q.z, 4u) << 16
-                           | min((uint32_t)q.w, 4u) << 24;
-        reinterpret_cast<uint32_t*>(sc)[v] = b;
+        const uint32_t r = __brev(~f);  // complements, first lowest, each code's two bits swapped
+        F[j] = f;
+        G[j] = ((r >> 1) & 0x55555555u) | ((r & 0x55555555u) << 1);
+        I[j] = (uint16_t)inv;
     }
     __syncthreads();
 
-    // roll both strands' codes along the run; key[i] is position p0 + i's
+    // key[i] is position p0 + i's
     const int p0 = tid * R;
-    const uint8_t* cp = sc + p0;
-    const int rs = 2 * k - 2;
-    U fw = 0, rv = 0;
-    int run = 0;  // valid codes ending at the last one rolled in
-    auto roll = [&](uint32_t c) {
-        const U b = c & 3;  // an invalid code (4) enters as 0
-        fw = ((fw << 2) | b) & mask;
-        rv = (rv >> 2) | ((U)(3 ^ b) << rs);
-        run = c < 4 ? run + 1 : 0;
-    };
-    for (int j = 0; j < k - 1; j++) roll(cp[j]);
+    const uint32_t f[3] = {F[tid], F[tid + 1], F[tid + 2]};
+    const uint32_t g[3] = {G[tid], G[tid + 1], G[tid + 2]};
+    const uint32_t z0 = I[tid] | (uint32_t)I[tid + 1] << 16, z1 = I[tid + 2];
+    const uint32_t kbits = k == 32 ? ~0u : (1u << k) - 1;
+    U m = mask;  // the same mask, its low word known to the compiler at k >= 17
+    if constexpr (sizeof(U) == 8) m = (U)(uint32_t)(mask >> 32) << 32 | 0xFFFFFFFFu;
     K key[R];
 #pragma unroll
     for (int i = 0; i < R; i++) {
-        roll(cp[k - 1 + i]);
+        U fw, rv;
+        kmer<U>(f, g, i, k, mask, fw, rv);
         const bool is_rev = rv < fw;
+        const bool ok = (__funnelshift_r(z0, z1, i) & kbits) == 0;
         const uint32_t lo = (uint32_t)(p0 + i) << 1 | (uint32_t)is_rev;
-        key[i] = (run >= k && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, mask), lo)
-                                        : K::sentinel(lo);
+        key[i] = (ok && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo) : K::sentinel(lo);
     }
 
     // w-blocks start where the local position is a multiple of w
@@ -273,10 +306,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sketch_kernel(
 template <typename U, class K>
 int launch(const void* codes, long long L_pad, int m, int k, int w, U mask, void* val, void* ps, cudaStream_t stream)
 {
-    const size_t shm = sizeof(K) * NKEYS + NCODES;
+    const size_t shm = sizeof(K) * NKEYS + 10 * NW;
     cudaError_t e = cudaFuncSetAttribute(sketch_kernel<U, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (e != cudaSuccess) return (int)e;
-    const int wt = (NP - (w - 1)) & ~3;  // window starts a block, a multiple of 4 for the 16-byte loads
+    const int wt = (NP - (w - 1)) & ~15;  // window starts a block, a multiple of 16 for the streams' words
     const long long L_out = L_pad - C;
     const dim3 grid((unsigned)((L_out + wt - 1) / wt), (unsigned)m);
     const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
