@@ -20,8 +20,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    (B 1920, R 131072) and (B 2048, R 10240), every problem through the
    kernels, whose events must equal the v2 kernels', and two problems of
    each shape (the one with the most windows among them) through the plain
-   versions too (carries, events and meta equal element for element); kernel and plain
-   times are printed, with the checkpoint walk's waves and the device ms of
+   versions too (carries, events and meta equal element for element);
+   kernel and plain times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
    and cycles a dependent read;
 3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),

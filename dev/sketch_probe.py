@@ -39,8 +39,8 @@ from pangraph_tpu_torch.ops import cuda_build as cb  # noqa: E402
 from pangraph_tpu_torch.ops import sketch_k1 as sk  # noqa: E402
 
 OUT = os.path.join(os.getcwd(), "_build", "sketch_probe")
-KEYS = "    // key[i] is position p0 + i's\n"
-BLOCKS = "    // w-blocks start where the local position is a multiple of w\n"
+KEYS = "        // key[i] is position p0 + i's\n"
+BLOCKS = "        // w-blocks start where the local position is a multiple of w\n"
 OUTPUT_LOOP = """
         long long* vrow = val + row * L_out + c0;
         int* prow = ps + row * L_out + c0;
@@ -49,23 +49,23 @@ OUTPUT_LOOP = """
             vrow[j] = (long long)x.value();
             prow[j] = (int)(((uint32_t)c0 << 1) + x.lo());
         }
-        return;
+        continue;
     }
 """
 
 
 def layout(threads: int, min_blocks: int) -> list:
     return [("constexpr int THREADS = 256;", f"constexpr int THREADS = {threads};"),
-            ("constexpr int MIN_BLOCKS = 3;", f"constexpr int MIN_BLOCKS = {min_blocks};")]
+            ("constexpr int MIN_BLOCKS = 4;", f"constexpr int MIN_BLOCKS = {min_blocks};")]
 
 
 # name -> (string edits, whether the outputs must equal the tree's)
 VARIANTS = {
     "tree": ([], True),
     "min_blocks_2": (layout(256, 2), True),
-    "min_blocks_4": (layout(256, 4), True),
-    "threads512": (layout(512, 1), True),
-    "threads128": (layout(128, 6), True),
+    "min_blocks_3": (layout(256, 3), True),
+    "threads512": (layout(512, 2), True),
+    "threads128": (layout(128, 8), True),
     "probe_loads_stores": ([(KEYS, """    if (w > 0) {
         long long* vrow = val + row * L_out + c0;
         int* prow = ps + row * L_out + c0;
@@ -73,7 +73,7 @@ VARIANTS = {
             vrow[j] = F[j >> 4];
             prow[j] = j;
         }
-        return;
+        continue;
     }
 """ + KEYS)], False),
     "probe_hash_stores": ([(BLOCKS, """    if (w > 0) {
