@@ -39,47 +39,45 @@ from pangraph_tpu_torch.ops import cuda_build as cb  # noqa: E402
 from pangraph_tpu_torch.ops import sketch_k1 as sk  # noqa: E402
 
 OUT = os.path.join(os.getcwd(), "_build", "sketch_probe")
-KEYS = "        // key[i] is position p0 + i's\n"
-BLOCKS = "        // w-blocks start where the local position is a multiple of w\n"
-OUTPUT_LOOP = """
+KEYS = "    // key[i] is position p0 + i's\n"
+PREFIX = "    // prefix minima (reset at a block start), straight to shared memory;\n"
+OUTPUT = """
         long long* vrow = val + row * L_out + c0;
         int* prow = ps + row * L_out + c0;
-        for (int j = tid; j < nwin; j += THREADS) {
-            const K x = keys[j + j / R];
-            vrow[j] = (long long)x.value();
-            prow[j] = (int)(((uint32_t)c0 << 1) + x.lo());
+        for (int j = 4 * tid; j < nwin; j += 4 * THREADS) {
+            K x[4];
+            for (int q = 0; q < 4; q++) x[q] = keys[j + q + (j + q) / R];
+            longlong2* v = reinterpret_cast<longlong2*>(vrow + j);
+            v[0] = make_longlong2((long long)x[0].value(), (long long)x[1].value());
+            v[1] = make_longlong2((long long)x[2].value(), (long long)x[3].value());
+            *reinterpret_cast<int4*>(prow + j) = make_int4((int)(2 * c0 + x[0].lo()), (int)(2 * c0 + x[1].lo()),
+                                                           (int)(2 * c0 + x[2].lo()), (int)(2 * c0 + x[3].lo()));
         }
-        continue;
+        return;
     }
 """
 
 
 def layout(threads: int, min_blocks: int) -> list:
-    return [("constexpr int THREADS = 256;", f"constexpr int THREADS = {threads};"),
-            ("constexpr int MIN_BLOCKS = 4;", f"constexpr int MIN_BLOCKS = {min_blocks};")]
+    return [("constexpr int THREADS = 128;", f"constexpr int THREADS = {threads};"),
+            ("constexpr int MIN_BLOCKS = 8;", f"constexpr int MIN_BLOCKS = {min_blocks};")]
 
 
 # name -> (string edits, whether the outputs must equal the tree's)
 VARIANTS = {
     "tree": ([], True),
-    "min_blocks_2": (layout(256, 2), True),
-    "min_blocks_3": (layout(256, 3), True),
-    "threads512": (layout(512, 2), True),
-    "threads128": (layout(128, 8), True),
+    "min_blocks_4": (layout(128, 4), True),
+    "min_blocks_6": (layout(128, 6), True),
+    "threads64": (layout(64, 16), True),
+    "threads256_min_blocks_4": (layout(256, 4), True),
     "probe_loads_stores": ([(KEYS, """    if (w > 0) {
-        long long* vrow = val + row * L_out + c0;
-        int* prow = ps + row * L_out + c0;
-        for (int j = tid; j < nwin; j += THREADS) {
-            vrow[j] = F[j >> 4];
-            prow[j] = j;
-        }
-        continue;
-    }
-""" + KEYS)], False),
-    "probe_hash_stores": ([(BLOCKS, """    if (w > 0) {
+        for (int j = 0; j < R; j++) keys[p0 + tid + j] = K::sentinel(F[tid + (j >> 3)] >> j & 0xFFFF);
+        __syncthreads();""" + OUTPUT + KEYS)],
+                           False),
+    "probe_hash_stores": ([(PREFIX, """    if (w > 0) {
 #pragma unroll
         for (int i = 0; i < R; i++) keys[p0 + tid + i] = key[i];
-        __syncthreads();""" + OUTPUT_LOOP + BLOCKS)], False),
+        __syncthreads();""" + OUTPUT + PREFIX)], False),
     "probe_no_mix": ([("K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo)",
                        "K::make((uint64_t)(is_rev ? rv : fw), lo)")], False),
 }
@@ -108,8 +106,8 @@ def sass_histogram(so: str) -> None:
     out = subprocess.run([exe, "-sass", so], capture_output=True, text=True).stdout
     for body in out.split("Function : ")[1:]:
         name = body.splitlines()[0].strip()
-        ops = collections.Counter(m.group(1).split(".")[0]
-                                  for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", body))
+        line = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)"  # an address, a predicate, the opcode
+        ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(line, body))
         print(f"sass kernel={name[-60:]} instructions={sum(ops.values())} top={ops.most_common(24)}", flush=True)
 
 

@@ -1,6 +1,5 @@
 // Minimizer sketch, dense per window start, for Hopper (sm_90a): one fused
-// launch of persistent blocks, each taking every gridDim-th tile of window
-// starts (tiles run row by row).
+// launch, one block per (row, tile of window starts).
 //
 // Replaces the Pallas kernel pangraph_tpu/ops/sketch_k1.py:_sketch_kernel.
 // The plain version, pangraph_tpu_torch/ops/sketch_k1.py:sketch_dense_plain,
@@ -19,14 +18,15 @@
 // about 84 integer operations per k-mer position at k > 16 (47 at k <= 16,
 // where the arithmetic fits 32-bit words): bytes and operations bind about
 // equally. The design keeps every position's work O(1):
-// - a tile is NP = 4096 positions (NP - w + 1 window starts, rounded down
-//   to a multiple of 16), so the halo of w - 1 positions and k - 1 codes is
-//   a few percent; its codes come in once, by 16-byte cp.async copies into
-//   a staging buffer, issued while the block works on the tile before (so
-//   loads and arithmetic overlap), and go to shared memory as three packed
-//   streams of 16 codes a word: the forward 2-bit codes, first code highest
-//   (F); their complements, first code lowest (G, a bit reverse of ~F with
-//   its pairs swapped); and a bit a code that marks it invalid (I);
+// - a block takes a tile of NP = 2048 positions (NP - w + 1 window starts,
+//   rounded down to a multiple of 16), so the halo of w - 1 positions and
+//   k - 1 codes is a few percent (5% at w = 100); 128 threads a block, 8
+//   blocks an SM (dev/sketch_probe.py timed 64 to 256 threads and 2 to 8
+//   blocks); the tile's codes come in once, in 16-byte loads, and go to
+//   shared memory as three packed streams of 16 codes a word: the forward
+//   2-bit codes, first code highest (F); their complements, first code
+//   lowest (G, a bit reverse of ~F with its pairs swapped); and a bit a
+//   code that marks it invalid (I);
 // - each thread takes a run of R = 16 consecutive positions and cuts each
 //   position's k-mer codes out of three words of each stream with funnel
 //   shifts, by amounts known at compile time but for the final align to 2k
@@ -48,9 +48,9 @@
 //   position) pair;
 // - P goes to shared memory (padded one key in 16, so that runs of 16 keys
 //   fall on distinct banks), the windows' results replace it there, and the
-//   block writes val and ps out coalesced.
+//   block writes val and ps out coalesced, four window starts a thread in
+//   16-byte stores.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,12 +58,12 @@ namespace {
 
 constexpr int C = 512;        // the wrapper's chunk: L_pad is a multiple of C
 constexpr int R = 16;         // positions a thread
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int NP = R * THREADS;  // positions a block
 constexpr int NKEYS = NP + NP / R;  // one pad key a run
 constexpr int NW = NP / 16 + 2;     // stream words: a run reads codes [p0, p0 + R + k - 1), 3 words
-constexpr int MIN_BLOCKS = 4;       // blocks an SM holds with packed keys (the registers a thread may take)
+constexpr int MIN_BLOCKS = 8;       // blocks an SM holds with packed keys (the registers a thread may take)
 
 // k <= 23: value << 16 | local (position << 1 | strand); the sentinel's
 // value field is all ones
@@ -172,21 +172,14 @@ __device__ __forceinline__ K carry_in(Seg<K> x, Seg<K>* wtot)
     return combine(acc, ex).a;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src)
-{
-    const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src));
-}
-
 // U: the word of the k-mer codes and the mix (uint32_t at k <= 16)
 template <typename U, class K>
 __global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sketch_kernel(
-    const int* __restrict__ codes, long long L_pad, int k, int w, U mask, int wt, long long tiles_per_row,
-    long long n_tiles, bool aligned, long long* __restrict__ val, int* __restrict__ ps)
+    const int* __restrict__ codes, long long L_pad, int k, int w, U mask, int wt, bool aligned,
+    long long* __restrict__ val, int* __restrict__ ps)
 {
     extern __shared__ __align__(16) uint8_t smem[];
-    int4* stage = reinterpret_cast<int4*>(smem);  // the next tile's codes, 16 a stream word
-    K* keys = reinterpret_cast<K*>(stage + 4 * NW);
+    K* keys = reinterpret_cast<K*>(smem);
     uint32_t* F = reinterpret_cast<uint32_t*>(keys + NKEYS);
     uint32_t* G = F + NW;
     uint16_t* I = reinterpret_cast<uint16_t*>(G + NW);
@@ -206,150 +199,117 @@ __global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sket
     const uint32_t ends = starts >> 1 | (uint32_t)((p0 + R) % w == 0) << (R - 1);
     const int first_start = starts ? __ffs(starts) - 1 : R, last_end = ends ? 31 - __clz(ends) : -1;
 
-    // a tile's codes [c0 + 16 j, c0 + 16 j + 16) to stage[4 j .. 4 j + 3],
-    // in flight while the block works on the tile before
-    auto fetch = [&](long long row, long long col) {
-        const int* crow = codes + row * L_pad;
-        const long long c0 = col * wt;
-        for (int j = tid; j < NW; j += THREADS) {
-            const long long g = c0 + 16LL * j;  // a multiple of 16, as L_pad is
-            if (g >= L_pad) continue;
+    const long long row = blockIdx.y;
+    const long long c0 = (long long)blockIdx.x * wt;
+    const int nwin = (int)min((long long)wt, L_out - c0);
+    const int* crow = codes + row * L_pad;
+
+    // codes [c0 + 16 j, c0 + 16 j + 16) to the streams' word j; 4 and up,
+    // and codes past the row, are invalid and enter the k-mers as 0
+    for (int j = tid; j < NW; j += THREADS) {
+        const long long g = c0 + 16LL * j;  // a multiple of 16, as L_pad is
+        uint32_t f = 0, inv = 0xFFFF;
+        if (g < L_pad) {
+            inv = 0;
 #pragma unroll
             for (int u = 0; u < 4; u++) {
                 const int* at = crow + g + 4 * u;
-                if (aligned)
-                    cp_async16(stage + 4 * j + u, at);
-                else
-                    stage[4 * j + u] = make_int4(__ldg(at), __ldg(at + 1), __ldg(at + 2), __ldg(at + 3));
+                const int4 q = aligned ? __ldg(reinterpret_cast<const int4*>(at))
+                                       : make_int4(__ldg(at), __ldg(at + 1), __ldg(at + 2), __ldg(at + 3));
+                const uint32_t B = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8
+                                   | min((uint32_t)q.z, 4u) << 16 | min((uint32_t)q.w, 4u) << 24;  // a byte a code
+                f = f << 8 | ((B & 0x03030303u) * 0x40100401u) >> 24;             // 4 codes, first highest
+                inv |= (((B >> 2) & 0x01010101u) * 0x01020408u) >> 24 << (4 * u);  // a bit a code, first lowest
             }
         }
-        asm volatile("cp.async.commit_group;\n" ::);
-    };
+        const uint32_t rb = __brev(~f);  // complements, first lowest, each code's two bits swapped
+        F[j] = f;
+        G[j] = ((rb >> 1) & 0x55555555u) | ((rb & 0x55555555u) << 1);
+        I[j] = (uint16_t)inv;
+    }
+    __syncthreads();
 
-    // one tile of window starts after another, every gridDim.x-th: tile =
-    // row * tiles_per_row + col, with (row, col) stepped without a division
-    long long next_row = blockIdx.x / tiles_per_row, next_col = blockIdx.x % tiles_per_row;
-    if (blockIdx.x < n_tiles) fetch(next_row, next_col);
-    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const long long row = next_row, c0 = next_col * wt;
-        for (next_col += gridDim.x; next_col >= tiles_per_row; next_row++) next_col -= tiles_per_row;
-        const int nwin = (int)min((long long)wt, L_out - c0);
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-        __syncthreads();
+    // key[i] is position p0 + i's
+    const uint32_t f[3] = {F[tid], F[tid + 1], F[tid + 2]};
+    const uint32_t g[3] = {G[tid], G[tid + 1], G[tid + 2]};
+    const uint32_t z0 = I[tid] | (uint32_t)I[tid + 1] << 16, z1 = I[tid + 2];
+    K key[R];
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        U fw, rv;
+        kmer<U>(f, g, i, k, mask, fw, rv);
+        const bool is_rev = rv < fw;
+        const bool ok = (__funnelshift_r(z0, z1, i) & kbits) == 0;
+        const uint32_t lo = (uint32_t)(p0 + i) << 1 | (uint32_t)is_rev;
+        key[i] = (ok && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo) : K::sentinel(lo);
+    }
 
-        // the staged codes to the streams' word j; 4 and up, and codes past the
-        // row, are invalid and enter the k-mers as 0
-        for (int j = tid; j < NW; j += THREADS) {
-            uint32_t f = 0, inv = 0xFFFF;
-            if (c0 + 16LL * j < L_pad) {
-                inv = 0;
+    // prefix minima (reset at a block start), straight to shared memory;
+    // the run's first segment takes the carry from the threads before
+    K* mine = keys + p0 + tid;  // this run's keys, padded (see keys[j + j / R] below)
+    K pr = key[0];
 #pragma unroll
-                for (int u = 0; u < 4; u++) {
-                    // which 4 codes: rotated so that a quarter warp's 16-byte reads take distinct banks
-                    const int r = (u + (j >> 1)) & 3;
-                    const int4 q = stage[4 * j + r];
-                    const uint32_t B = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8
-                                       | min((uint32_t)q.z, 4u) << 16 | min((uint32_t)q.w, 4u) << 24;  // a byte a code
-                    f |= ((B & 0x03030303u) * 0x40100401u) >> 24 << (24 - 8 * r);      // 4 codes, first highest
-                    inv |= (((B >> 2) & 0x01010101u) * 0x01020408u) >> 24 << (4 * r);  // a bit a code, first lowest
-                }
-            }
-            const uint32_t rb = __brev(~f);  // complements, first lowest, each code's two bits swapped
-            F[j] = f;
-            G[j] = ((rb >> 1) & 0x55555555u) | ((rb & 0x55555555u) << 1);
-            I[j] = (uint16_t)inv;
-        }
-        __syncthreads();
-        if (tile + gridDim.x < n_tiles) fetch(next_row, next_col);
+    for (int i = 0; i < R; i++) {
+        if (i > 0) pr = starts >> i & 1 ? key[i] : kmin(pr, key[i]);
+        mine[i] = pr;
+    }
+    const K pin = carry_in<false, K>(Seg<K>{pr, first_start < R}, wtot[0]);
+    for (int i = 0; i < first_start; i++) mine[i] = kmin(pin, mine[i]);
 
-        // key[i] is position p0 + i's
-        const uint32_t f[3] = {F[tid], F[tid + 1], F[tid + 2]};
-        const uint32_t g[3] = {G[tid], G[tid + 1], G[tid + 2]};
-        const uint32_t z0 = I[tid] | (uint32_t)I[tid + 1] << 16, z1 = I[tid + 2];
-        K key[R];
+    // suffix minima (reset after a block end), in key
 #pragma unroll
-        for (int i = 0; i < R; i++) {
-            U fw, rv;
-            kmer<U>(f, g, i, k, mask, fw, rv);
-            const bool is_rev = rv < fw;
-            const bool ok = (__funnelshift_r(z0, z1, i) & kbits) == 0;
-            const uint32_t lo = (uint32_t)(p0 + i) << 1 | (uint32_t)is_rev;
-            key[i] = (ok && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo) : K::sentinel(lo);
-        }
+    for (int i = R - 2; i >= 0; i--) {
+        if (!(ends >> i & 1)) key[i] = kmin(key[i + 1], key[i]);
+    }
+    const K sin = carry_in<true, K>(Seg<K>{key[0], last_end >= 0}, wtot[1]);
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        if (i > last_end) key[i] = kmin(sin, key[i]);
+    }
+    __syncthreads();  // every P is in shared memory
 
-        // prefix minima (reset at a block start), straight to shared memory;
-        // the run's first segment takes the carry from the threads before
-        K* mine = keys + p0 + tid;  // this run's keys, padded (see keys[j + j / R] below)
-        K pr = key[0];
+    // window c = p0 + i: min(S[c], P[c + w - 1]), then the results replace P
 #pragma unroll
-        for (int i = 0; i < R; i++) {
-            if (i > 0) pr = starts >> i & 1 ? key[i] : kmin(pr, key[i]);
-            mine[i] = pr;
-        }
-        const K pin = carry_in<false, K>(Seg<K>{pr, first_start < R}, wtot[0]);
-        for (int i = 0; i < first_start; i++) mine[i] = kmin(pin, mine[i]);
+    for (int i = 0; i < R; i++) {
+        const int q = p0 + i + w - 1;
+        if (p0 + i < nwin) key[i] = kmin(key[i], keys[q + q / R]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < R; i++) {
+        if (p0 + i < nwin) mine[i] = key[i];
+    }
+    __syncthreads();
 
-        // suffix minima (reset after a block end), in key
+    // four window starts a thread in 16-byte stores (nwin, c0 and L_out
+    // are multiples of 16)
+    long long* vrow = val + row * L_out + c0;
+    int* prow = ps + row * L_out + c0;
+    const uint32_t ps0 = (uint32_t)c0 << 1;  // int32 bits, as the reference's
+    for (int j = 4 * tid; j < nwin; j += 4 * THREADS) {
+        K x[4];
 #pragma unroll
-        for (int i = R - 2; i >= 0; i--) {
-            if (!(ends >> i & 1)) key[i] = kmin(key[i + 1], key[i]);
-        }
-        const K sin = carry_in<true, K>(Seg<K>{key[0], last_end >= 0}, wtot[1]);
-#pragma unroll
-        for (int i = 0; i < R; i++) {
-            if (i > last_end) key[i] = kmin(sin, key[i]);
-        }
-        __syncthreads();  // every P is in shared memory
-
-        // window c = p0 + i: min(S[c], P[c + w - 1]), then the results replace P
-#pragma unroll
-        for (int i = 0; i < R; i++) {
-            const int q = p0 + i + w - 1;
-            if (p0 + i < nwin) key[i] = kmin(key[i], keys[q + q / R]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < R; i++) {
-            if (p0 + i < nwin) mine[i] = key[i];
-        }
-        __syncthreads();
-
-        // four window starts a thread in 16-byte stores (nwin, c0 and L_out
-        // are multiples of 16)
-        long long* vrow = val + row * L_out + c0;
-        int* prow = ps + row * L_out + c0;
-        const uint32_t ps0 = (uint32_t)c0 << 1;  // int32 bits, as the reference's
-        for (int j = 4 * tid; j < nwin; j += 4 * THREADS) {
-            K x[4];
-#pragma unroll
-            for (int q = 0; q < 4; q++) x[q] = keys[j + q + (j + q) / R];
-            longlong2* v = reinterpret_cast<longlong2*>(vrow + j);
-            v[0] = make_longlong2((long long)x[0].value(), (long long)x[1].value());
-            v[1] = make_longlong2((long long)x[2].value(), (long long)x[3].value());
-            *reinterpret_cast<int4*>(prow + j) = make_int4((int)(ps0 + x[0].lo()), (int)(ps0 + x[1].lo()),
-                                                           (int)(ps0 + x[2].lo()), (int)(ps0 + x[3].lo()));
-        }
+        for (int q = 0; q < 4; q++) x[q] = keys[j + q + (j + q) / R];
+        longlong2* v = reinterpret_cast<longlong2*>(vrow + j);
+        v[0] = make_longlong2((long long)x[0].value(), (long long)x[1].value());
+        v[1] = make_longlong2((long long)x[2].value(), (long long)x[3].value());
+        *reinterpret_cast<int4*>(prow + j) = make_int4((int)(ps0 + x[0].lo()), (int)(ps0 + x[1].lo()),
+                                                       (int)(ps0 + x[2].lo()), (int)(ps0 + x[3].lo()));
     }
 }
 
 template <typename U, class K>
 int launch(const void* codes, long long L_pad, int m, int k, int w, U mask, void* val, void* ps, cudaStream_t stream)
 {
-    const size_t shm = 64 * NW + sizeof(K) * NKEYS + 10 * NW;
+    const size_t shm = sizeof(K) * NKEYS + 10 * NW;
     cudaError_t e = cudaFuncSetAttribute(sketch_kernel<U, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sketch_kernel<U, K>, THREADS, shm);
     if (e != cudaSuccess) return (int)e;
-    const int wt = (NP - (w - 1)) & ~15;  // window starts a tile, a multiple of 16 for the streams' words
-    const long long tiles_per_row = (L_pad - C + wt - 1) / wt;
-    const long long n_tiles = tiles_per_row * m;
-    const unsigned grid = (unsigned)std::min<long long>(n_tiles, (long long)std::max(per_sm, 1) * sms);
-    const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
     if ((reinterpret_cast<uintptr_t>(val) | reinterpret_cast<uintptr_t>(ps)) & 15) return (int)cudaErrorInvalidValue;
+    const int wt = (NP - (w - 1)) & ~15;  // window starts a block, a multiple of 16 for the streams' words
+    const dim3 grid((unsigned)((L_pad - C + wt - 1) / wt), (unsigned)m);
+    const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
     sketch_kernel<U, K><<<grid, THREADS, shm, stream>>>(
-        static_cast<const int*>(codes), L_pad, k, w, mask, wt, tiles_per_row, n_tiles, aligned,
+        static_cast<const int*>(codes), L_pad, k, w, mask, wt, aligned,
         static_cast<long long*>(val), static_cast<int*>(ps));
     return (int)cudaGetLastError();
 }

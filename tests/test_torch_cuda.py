@@ -288,25 +288,33 @@ def test_sketch_kernel_matches_plain_version(k, w):
 def _sketch_batch(rng, kind, k):
     """Code batches whose shapes cross the kernel's tiles: one row of many
     tiles (its window starts not a multiple of a tile's), several thousand
-    short rows, and rows of all N beside a row of one even-k palindrome
-    repeated (every k-mer its own reverse complement) and random rows."""
+    short rows, rows of all N beside a row of one even-k palindrome
+    repeated (every k-mer its own reverse complement) and random rows, and
+    random rows that the test places off 16-byte alignment."""
     if kind == "one_long_row":
         return _codes(rng, 1, 203 * 512, [203 * 512 - 300])
     if kind == "many_short_rows":
         return _codes(rng, 3000, 1024, rng.integers(1, 1024, 3000))
+    if kind == "unaligned_codes":
+        return _codes(rng, 3, 9 * 512, rng.integers(3000, 9 * 512, 3))
     codes = _codes(rng, 6, 12 * 512, rng.integers(3000, 12 * 512, 6))
     codes[1:3] = 4  # all N
     codes[3, :5000] = np.resize([0, 3], 5000)  # ATAT...
     return codes
 
 
-@pytest.mark.parametrize("kind", ["one_long_row", "many_short_rows", "all_n_and_palindromes"])
+@pytest.mark.parametrize("kind", ["one_long_row", "many_short_rows", "all_n_and_palindromes", "unaligned_codes"])
 @pytest.mark.parametrize("k,w", [(15, 100), (19, 19), (16, 2), (17, 1), (24, 1), (32, 354)])
 def test_sketch_kernel_tiles_and_edge_rows(k, w, kind):
     from pangraph_tpu_torch.ops import sketch_k1 as sk
 
     need_cuda()
     codes = torch.from_numpy(_sketch_batch(np.random.default_rng(7 * k + w), kind, k)).cuda()
+    if kind == "unaligned_codes":  # a contiguous view one int32 into its storage: the kernel's scalar loads
+        buf = torch.empty(codes.numel() + 1, dtype=torch.int32, device=codes.device)
+        buf[1:] = codes.flatten()
+        codes = buf[1:].view(codes.shape)
+        assert codes.is_contiguous() and codes.data_ptr() % 16
     val, ps = sk.sketch_dense(codes, k, w)
     want_val, want_ps = sk.sketch_dense_plain(codes, k, w)
     assert torch.equal(val, want_val) and torch.equal(ps, want_ps)
