@@ -18,9 +18,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
    (B 1920, R 131072) and (B 2048, R 10240), every problem through the
-   kernels, whose events must equal the v2 kernels', and two problems of
-   each shape (the one with the most windows among them) through the plain
-   versions too (carries, events and meta equal element for element);
+   kernels, whose events must equal the v2 kernels', every problem's
+   carries against the plain DP's, and two problems of each shape (the one
+   with the most windows among them) through the plain walk too (carries,
+   events and meta equal element for element);
    kernel and plain times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
    and cycles a dependent read;
@@ -30,7 +31,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    checkpoint walk's re-derive and walk launches apart;
 3c. the sketch and chain kernels against their plain versions on the card:
    the sketch on random code batches with N and lowercase (8 and 9 rows of
-   150-300 kbp) at (k, w) = (15, 100), (19, 19) and (7, 5), dense outputs
+   150-300 kbp) at (k, w) = (15, 100), (19, 19), (7, 5) and (28, 19) (the
+   kernel's 32-bit, 64-bit and (value, position) key paths), dense outputs
    equal element for element; the chain DP on random anchor clouds of 4,100
    and 20,000 anchors, f and parent equal; kernel and plain times printed,
    with the chain's cycles a step and the sketch's SM cycles a window start
@@ -119,10 +121,13 @@ PROFILE_TRIES = 3
 # 10,240 tier at the kernel's widest band; R is the tier, the problems' rows
 # are drawn from the tier's range (R/2 to R)
 CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8)]
-# the checkpoint pair's plain versions take minutes a problem at these
-# shapes, so they run on this many of each shape's problems: the one with
-# the most windows and the first of the others (_plain_ckpt_problems)
-PLAIN_CKPT_PROBLEMS = 2
+# the checkpoint walk's plain version takes minutes at these shapes, so it
+# runs on this many of each shape's problems: the one with the most windows
+# and the first of the others (_plain_ckpt_problems; dev/ckpt_plain_cost.py
+# times it against every problem). The plain DP runs on every problem: it
+# steps all of them through the longest one's rows at once, so its time
+# barely follows their count
+PLAIN_CKPT_WALK_PROBLEMS = 2
 MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"
@@ -197,7 +202,7 @@ WALK_OPS_PER_MOVE = 35
 # longest walk's.
 DEP_LOAD_CYCLES = 300
 # (k, w) of phase 3c's sketch batches; rows per batch; row lengths (bp)
-SKETCH_PARAMS = [(15, 100), (19, 19), (7, 5)]
+SKETCH_PARAMS = [(15, 100), (19, 19), (7, 5), (28, 19)]
 SKETCH_ROWS = (8, 9)
 SKETCH_ROW_BP = (150_000, 300_000)
 CHAIN_SIZES = (4100, 20000)  # anchors per random cloud (phase 3c)
@@ -205,19 +210,24 @@ CHAIN_SIZES = (4100, 20000)  # anchors per random cloud (phase 3c)
 # and the guide tree's mash sketch (build/tree.py -> mash_distance)
 PATH_SKETCH_PARAMS = [(19, 19), (15, 100)]
 # Integer operations per k-mer position that the sketch needs, counted from
-# ops/sketch_k1.py:sketch_dense_plain as if the codes rolled and the window
-# minimum were van Herk / Gil-Werman's, one per add, shift, xor, and, or,
-# compare or pick of a 32-bit word: (count, whether each acts on the k-mer's
-# 2k-bit word). At k > 16 that word takes two 32-bit words, so those count
-# twice; at k <= 16 one, since the mix is exact in 32-bit words there (its
-# right shifts act on values already masked to 2k <= 32 bits).
+# ops/sketch_k1.py:sketch_dense_plain as a design that is O(1) a position
+# computes it: the codes packed 2 bits a code (their complement and validity
+# then cost a few operations a word of 16 codes, not counted), the k-mer
+# codes rolled or cut from the packed words, each shift-add group of the mix
+# one multiply-add by a constant (x + (x << 3) + (x << 8) is x * 265), and
+# the window minimum van Herk / Gil-Werman's. One per add, multiply-add,
+# shift, xor, and, or, compare or pick of a 32-bit word: (count, whether
+# each acts on the k-mer's 2k-bit word). At k > 16 that word takes two
+# 32-bit words, so those count twice; at k <= 16 one, since the mix is exact
+# in 32-bit words there (its right shifts act on values already masked to
+# 2k <= 32 bits).
 SKETCH_OPS = {
-    "code: valid test, substitute, complement": (3, False),
-    "forward k-mer, rolled: shift, or, mask": (3, True),
-    "reverse k-mer, rolled: shift, shift the complement in, or": (3, True),
+    "code: substitute (min with 4), fold into the packed word": (2, False),
+    "forward k-mer: shift, or, mask": (3, True),
+    "reverse k-mer: shift, shift the complement in, or": (3, True),
     "valid run: compare, add or reset": (2, False),
     "canonical: unsigned compare, equal test, pick": (3, True),
-    "Jenkins mix: 23 adds, shifts, xors, nots and masks": (23, True),
+    "Jenkins mix: 4 multiply-adds, 3 shifts, 3 xors, 4 masks": (14, True),
     "sentinel: and": (1, False),
     "sentinel: pick": (1, True),
     "position and strand: shift, or": (2, False),
@@ -227,7 +237,7 @@ SKETCH_OPS = {
 
 
 def sketch_ops_per_position(k: int) -> int:
-    """SKETCH_OPS summed at k: 84 at k > 16, 47 at k <= 16."""
+    """SKETCH_OPS summed at k: 65 at k > 16, 37 at k <= 16."""
     return sum(n * (2 if wide and k > 16 else 1) for n, wide in SKETCH_OPS.values())
 
 
@@ -581,10 +591,10 @@ def _rederived_windows(out, rlen, WV: int, K: int) -> int:
 
 
 def _plain_ckpt_problems(rlen) -> list:
-    """The problems the checkpoint pair's plain versions run on: the one
+    """The problems the checkpoint walk's plain version runs on: the one
     with the most windows (the longest) and the first of the others."""
     top = int(np.argmax(rlen))
-    return [top] + [i for i in range(len(rlen)) if i != top][: PLAIN_CKPT_PROBLEMS - 1]
+    return [top] + [i for i in range(len(rlen)) if i != top][: PLAIN_CKPT_WALK_PROBLEMS - 1]
 
 
 def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: list) -> tuple:
@@ -637,22 +647,23 @@ def phase_ckpt_kernels(torch) -> dict:
         WV = sv.ckpt_layout(B)
         n_windows = sv.ckpt_windows(R, B)
 
+        ck = sv.stripe_dp_ckpt(*t, B, R)
+        dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), TIMED_REPS)
+        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*t, B, R))
+        live = torch.arange(n_windows, device=dev)[None, :] * WV <= t[2][:, None].long()
+        diff = (ck - ck_plain).abs()[live]
+        dp_err = int(diff.max()) if diff.numel() else 0
+
         sel = _plain_ckpt_problems(arrays[2])
         idx = torch.tensor(sel, device=dev)
         tsel = [x[idx].contiguous() for x in t]
-        ck = sv.stripe_dp_ckpt(*t, B, R)
-        dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), TIMED_REPS)
-        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*tsel, B, R))
-        live = torch.arange(n_windows, device=dev)[None, :] * WV <= tsel[2][:, None].long()
-        diff = (ck[idx] - ck_plain).abs()[live]
-        dp_err = int(diff.max()) if diff.numel() else 0
-
         out = sv.walk_ckpt(ck, *t, WALK_K)
         n = len(sel)
         sub = [ck[idx].contiguous()] + tsel
         walk_all_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, WALK_K), TIMED_REPS)
         walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(*sub, WALK_K), TIMED_REPS)
-        plain_walk_ms, out_plain = _host_ms(torch, lambda: sv.walk_ckpt_plain(ck_plain, *tsel, WALK_K))
+        plain_walk_ms, out_plain = _host_ms(
+            torch, lambda: sv.walk_ckpt_plain(ck_plain[idx].contiguous(), *tsel, WALK_K))
         walk_err = _walk_err([x[idx] for x in out], out_plain, n, WALK_K)
         parts = _walk_ckpt_parts(torch, sv, sub, WALK_K)
 
@@ -671,7 +682,7 @@ def phase_ckpt_kernels(torch) -> dict:
             dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"],
             dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4), dp_binds=dp_bound["binds"],
             dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())), dp_max_abs_err=dp_err,
-            plain_problems=json.dumps(sel), walk_all_ms=round(walk_all_ms, 3), walk_ms=round(walk_ms, 3),
+            walk_plain_problems=json.dumps(sel), walk_all_ms=round(walk_all_ms, 3), walk_ms=round(walk_ms, 3),
             plain_walk_ms=round(plain_walk_ms, 1), walk_waves=parts["waves"],
             walk_rederive_ms=round(parts["rederive_ms"], 3), walk_walk_ms=round(parts["walk_ms"], 3),
             walk_rederived_windows_at_least=win, walk_reads_at_least=walk_bound["reads"],
@@ -1215,14 +1226,13 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         if name == "walk":
             problems = min(problems, PLAIN_WALK_PROBLEMS)
         elif name == "walk_ckpt":
-            problems = min(problems, PLAIN_CKPT_PROBLEMS)
+            problems = min(problems, PLAIN_CKPT_WALK_PROBLEMS)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name], "max_abs_err": phase["worst"][name],
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
-            "shape": f"B={shape[0]} R={shape[1]} problems={problems}"
-                     + (f" plain_problems={PLAIN_CKPT_PROBLEMS}" if name == "stripe_dp_ckpt" else ""),
+            "shape": f"B={shape[0]} R={shape[1]} problems={problems}",
         })
         if "dep_bound_ms" in bound:
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])

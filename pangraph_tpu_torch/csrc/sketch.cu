@@ -14,15 +14,16 @@
 // sentinel window is computed from the substituted codes, as the reference
 // computes it.
 //
-// What bounds it: per window start 4 bytes of codes read and 12 written, and
-// about 84 integer operations per k-mer position at k > 16 (47 at k <= 16,
-// where the arithmetic fits 32-bit words): bytes and operations bind about
-// equally. The design keeps every position's work O(1):
+// What bounds it: per window start 4 bytes of codes read and 12 written
+// (the bytes bind), and about 65 integer operations per k-mer position at
+// k > 16 (37 at k <= 16, where the arithmetic fits 32-bit words). The
+// design keeps every position's work O(1):
 // - a block takes a tile of NP = 2048 positions (NP - w + 1 window starts,
 //   rounded down to a multiple of 16), so the halo of w - 1 positions and
 //   k - 1 codes is a few percent (5% at w = 100); 128 threads a block, 8
-//   blocks an SM (dev/sketch_probe.py timed 64 to 256 threads and 2 to 8
-//   blocks); the tile's codes come in once, in 16-byte loads, and go to
+//   blocks an SM (dev/sketch_ab_cuda.py times other layouts); the tile's
+//   codes come in once, in 16-byte loads (codes, val and ps must be 16-byte
+//   aligned), and go to
 //   shared memory as three packed streams of 16 codes a word: the forward
 //   2-bit codes, first code highest (F); their complements, first code
 //   lowest (G, a bit reverse of ~F with its pairs swapped); and a bit a
@@ -50,20 +51,43 @@
 //   fall on distinct banks), the windows' results replace it there, and the
 //   block writes val and ps out coalesced, four window starts a thread in
 //   16-byte stores.
+//
+// Build flags for dev/sketch_ab_cuda.py's variants (none in the port's
+// build): SKETCH_THREADS, SKETCH_MIN_BLOCKS and SKETCH_PAIR_MIN_BLOCKS set
+// the layout; SKETCH_PAIR_KEY takes the (value, position) pair at every k
+// (dev/sketch_ab_cuda.py found it 2.6-2.9x slower at k 15 and 19, hence the
+// packed key where it fits);
+// SKETCH_PROBE=1 writes the codes out with no hash and no minimum (loads
+// and stores alone), 2 the hashes with no minimum, 3 the whole kernel
+// without the mix. A probe's outputs are wrong by design.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+#ifndef SKETCH_THREADS
+#define SKETCH_THREADS 128
+#endif
+#ifndef SKETCH_MIN_BLOCKS
+#define SKETCH_MIN_BLOCKS 8
+#endif
+#ifndef SKETCH_PAIR_MIN_BLOCKS
+#define SKETCH_PAIR_MIN_BLOCKS 2
+#endif
+#ifndef SKETCH_PROBE
+#define SKETCH_PROBE 0
+#endif
+
 constexpr int C = 512;        // the wrapper's chunk: L_pad is a multiple of C
 constexpr int R = 16;         // positions a thread
-constexpr int THREADS = 128;
+constexpr int THREADS = SKETCH_THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int NP = R * THREADS;  // positions a block
 constexpr int NKEYS = NP + NP / R;  // one pad key a run
 constexpr int NW = NP / 16 + 2;     // stream words: a run reads codes [p0, p0 + R + k - 1), 3 words
-constexpr int MIN_BLOCKS = 8;       // blocks an SM holds with packed keys (the registers a thread may take)
+constexpr int MIN_BLOCKS = SKETCH_MIN_BLOCKS;  // blocks an SM holds with packed keys (the registers a thread may take)
+constexpr int PAIR_MIN_BLOCKS = SKETCH_PAIR_MIN_BLOCKS;  // the same with pair keys
 
 // k <= 23: value << 16 | local (position << 1 | strand); the sentinel's
 // value field is all ones
@@ -174,8 +198,8 @@ __device__ __forceinline__ K carry_in(Seg<K> x, Seg<K>* wtot)
 
 // U: the word of the k-mer codes and the mix (uint32_t at k <= 16)
 template <typename U, class K>
-__global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sketch_kernel(
-    const int* __restrict__ codes, long long L_pad, int k, int w, U mask, int wt, bool aligned,
+__global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : PAIR_MIN_BLOCKS) sketch_kernel(
+    const int* __restrict__ codes, long long L_pad, int k, int w, U mask, int wt,
     long long* __restrict__ val, int* __restrict__ ps)
 {
     extern __shared__ __align__(16) uint8_t smem[];
@@ -213,9 +237,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sket
             inv = 0;
 #pragma unroll
             for (int u = 0; u < 4; u++) {
-                const int* at = crow + g + 4 * u;
-                const int4 q = aligned ? __ldg(reinterpret_cast<const int4*>(at))
-                                       : make_int4(__ldg(at), __ldg(at + 1), __ldg(at + 2), __ldg(at + 3));
+                const int4 q = __ldg(reinterpret_cast<const int4*>(crow + g + 4 * u));
                 const uint32_t B = min((uint32_t)q.x, 4u) | min((uint32_t)q.y, 4u) << 8
                                    | min((uint32_t)q.z, 4u) << 16 | min((uint32_t)q.w, 4u) << 24;  // a byte a code
                 f = f << 8 | ((B & 0x03030303u) * 0x40100401u) >> 24;             // 4 codes, first highest
@@ -236,17 +258,33 @@ __global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sket
     K key[R];
 #pragma unroll
     for (int i = 0; i < R; i++) {
+#if SKETCH_PROBE == 1
+        key[i] = K::sentinel(__funnelshift_r(f[0], f[1], i) & 0xFFFF);
+#else
         U fw, rv;
         kmer<U>(f, g, i, k, mask, fw, rv);
         const bool is_rev = rv < fw;
         const bool ok = (__funnelshift_r(z0, z1, i) & kbits) == 0;
         const uint32_t lo = (uint32_t)(p0 + i) << 1 | (uint32_t)is_rev;
-        key[i] = (ok && rv != fw) ? K::make((uint64_t)jenkins<U>(is_rev ? rv : fw, m), lo) : K::sentinel(lo);
+#if SKETCH_PROBE == 3
+        const U h = is_rev ? rv : fw;
+#else
+        const U h = jenkins<U>(is_rev ? rv : fw, m);
+#endif
+        key[i] = (ok && rv != fw) ? K::make((uint64_t)h, lo) : K::sentinel(lo);
+#endif
     }
+    K* mine = keys + p0 + tid;  // this run's keys, padded (see keys[j + j / R] below)
 
+#if SKETCH_PROBE == 1 || SKETCH_PROBE == 2
+#pragma unroll
+    for (int i = 0; i < R; i++) mine[i] = key[i];
+    (void)first_start;
+    (void)last_end;
+    (void)wtot;
+#else
     // prefix minima (reset at a block start), straight to shared memory;
     // the run's first segment takes the carry from the threads before
-    K* mine = keys + p0 + tid;  // this run's keys, padded (see keys[j + j / R] below)
     K pr = key[0];
 #pragma unroll
     for (int i = 0; i < R; i++) {
@@ -279,6 +317,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(K) == 8 ? MIN_BLOCKS : 2) sket
     for (int i = 0; i < R; i++) {
         if (p0 + i < nwin) mine[i] = key[i];
     }
+#endif
     __syncthreads();
 
     // four window starts a thread in 16-byte stores (nwin, c0 and L_out
@@ -304,12 +343,12 @@ int launch(const void* codes, long long L_pad, int m, int k, int w, U mask, void
     const size_t shm = sizeof(K) * NKEYS + 10 * NW;
     cudaError_t e = cudaFuncSetAttribute(sketch_kernel<U, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (e != cudaSuccess) return (int)e;
-    if ((reinterpret_cast<uintptr_t>(val) | reinterpret_cast<uintptr_t>(ps)) & 15) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(val) | reinterpret_cast<uintptr_t>(ps)) & 15)
+        return (int)cudaErrorInvalidValue;
     const int wt = (NP - (w - 1)) & ~15;  // window starts a block, a multiple of 16 for the streams' words
     const dim3 grid((unsigned)((L_pad - C + wt - 1) / wt), (unsigned)m);
-    const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
     sketch_kernel<U, K><<<grid, THREADS, shm, stream>>>(
-        static_cast<const int*>(codes), L_pad, k, w, mask, wt, aligned,
+        static_cast<const int*>(codes), L_pad, k, w, mask, wt,
         static_cast<long long*>(val), static_cast<int*>(ps));
     return (int)cudaGetLastError();
 }
@@ -324,7 +363,11 @@ extern "C" int sketch_launch(
         return (int)cudaErrorInvalidValue;
     const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef SKETCH_PAIR_KEY
+    if (k <= 16) return launch<uint32_t, WideKey>(codes, L_pad, m, k, w, (uint32_t)mask, val, ps, s);
+#else
     if (k <= 16) return launch<uint32_t, PackedKey>(codes, L_pad, m, k, w, (uint32_t)mask, val, ps, s);
     if (k <= 23) return launch<uint64_t, PackedKey>(codes, L_pad, m, k, w, mask, val, ps, s);
+#endif
     return launch<uint64_t, WideKey>(codes, L_pad, m, k, w, mask, val, ps, s);
 }

@@ -16,8 +16,9 @@ invalid; L_pad a multiple of C and at least 2C) and returns the minimum's
 value as int64 (the uint64 bits; the sentinel 0xFFFF_FFFF_FFFF_FFFF is -1)
 and `pos << 1 | strand` as int32, both [m, L_pad - C], for window starts
 [0, L_pad - C). On a CUDA tensor it launches csrc/sketch.cu (replacing
-pangraph_tpu/ops/sketch_k1.py:_sketch_kernel); on a CPU tensor it runs
-`sketch_dense_plain`. `sketch_batch` and `sketch_one` are the numpy
+pangraph_tpu/ops/sketch_k1.py:_sketch_kernel), which reads the codes in
+16-byte loads and so refuses a tensor that is not 16-byte aligned (torch
+allocates aligned); on a CPU tensor it runs `sketch_dense_plain`. `sketch_batch` and `sketch_one` are the numpy
 counterparts of `sketch_pallas_batch` and `sketch_pallas`: `sketch_batch`
 splits the value into the reference's (hi, lo) int32 words.
 
@@ -152,6 +153,8 @@ def sketch_dense_cuda(codes: torch.Tensor, k: int, w: int):
     if codes.device.type != "cuda":
         raise ValueError(f"the sketch kernel runs on CUDA tensors, not {codes.device}")
     _check_codes(codes, k, w)
+    if codes.data_ptr() % 16:
+        raise ValueError("the sketch kernel reads codes in 16-byte loads: codes must be 16-byte aligned")
     m, L_pad = codes.shape
     val = torch.empty((m, L_pad - C), dtype=torch.int64, device=codes.device)
     ps = torch.empty((m, L_pad - C), dtype=torch.int32, device=codes.device)

@@ -290,7 +290,8 @@ def _sketch_batch(rng, kind, k):
     tiles (its window starts not a multiple of a tile's), several thousand
     short rows, rows of all N beside a row of one even-k palindrome
     repeated (every k-mer its own reverse complement) and random rows, and
-    random rows that the test places off 16-byte alignment."""
+    random rows that the test places off 16-byte alignment, which the
+    kernel's 16-byte loads refuse."""
     if kind == "one_long_row":
         return _codes(rng, 1, 203 * 512, [203 * 512 - 300])
     if kind == "many_short_rows":
@@ -310,11 +311,16 @@ def test_sketch_kernel_tiles_and_edge_rows(k, w, kind):
 
     need_cuda()
     codes = torch.from_numpy(_sketch_batch(np.random.default_rng(7 * k + w), kind, k)).cuda()
-    if kind == "unaligned_codes":  # a contiguous view one int32 into its storage: the kernel's scalar loads
+    if kind == "unaligned_codes":  # a contiguous view one int32 into its storage
         buf = torch.empty(codes.numel() + 1, dtype=torch.int32, device=codes.device)
         buf[1:] = codes.flatten()
         codes = buf[1:].view(codes.shape)
         assert codes.is_contiguous() and codes.data_ptr() % 16
+        before = sk.LAUNCHES["sketch"]
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            sk.sketch_dense(codes, k, w)
+        assert sk.LAUNCHES["sketch"] == before
+        return
     val, ps = sk.sketch_dense(codes, k, w)
     want_val, want_ps = sk.sketch_dense_plain(codes, k, w)
     assert torch.equal(val, want_val) and torch.equal(ps, want_ps)
