@@ -65,7 +65,22 @@ Phases, one line each (any failure exits non-zero and prints no result):
    group; then both kernels' outputs held against their plain versions on
    the card on the same inputs (all ten genomes at both parameter sets, all
    90 groups); kernel times, and the chain's cycles a step, beside the host
-   engines' times for the same work.
+   engines' times for the same work;
+7. the CLI path, through pangraph_tpu_torch.cli.main on phase 4's graph,
+   each step's wall on a line of its own: `reconstruct --verify` (exit 0),
+   `export gfa` (an S line a block, a P line a genome), `export
+   block-consensus` (each record its block's consensus), `export
+   core-genome` (ten aligned records of one length), `export
+   block-sequences` (a file a block), `schema` (JSON), `simplify` into
+   genomes 0-4 and 5-9 (each half verified), then `merge -c --device cuda`
+   of the two halves (half B's blocks under fresh ids, since both halves
+   keep the core blocks' ids), with the launch counts set to 0 just before
+   it: the DP and walk launched, the checkpoint pair, sketch and chain not,
+   at least half the DP cells on the device, all ten genomes reconstructed
+   exactly; the merged graph's quality beside phase 4's (no bound), its
+   launch-log lines, and its MSU and backbone-junction counts through the
+   pypangraph facade (through the analysis layer's pandas-free parts where
+   pandas is absent).
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
 walk's, the chain's and the sketch's: theirs are kernel-only, from
@@ -78,7 +93,8 @@ that time is the event pair instead, a kernel_ms_fallback line says so,
 and the kernel's receipt says "timed_by": "profiler, events in some phase".
 
 Before the last line it prints one JSON line of kernel receipts (each of
-the six with its launches on its path, its worst error against its plain version, its
+the six with its launches on its path, the DP's and walk's also on phase
+7's merge, its worst error against its plain version, its
 time and its plain version's, and its bound) and the card's name and power
 limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -783,9 +799,11 @@ def headline_fasta(path: str) -> int:
     return sum(len(r.seq) for r in recs)
 
 
-def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile: bool = False) -> dict:
+def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile: bool = False,
+                     out: str = None) -> dict:
     """`build -c -f -j 2 --device cuda` through the CLI on `fa`, with `env`
-    set around it. The launch counts are set to 0 just before and read just
+    set around it, writing the graph JSON to `out` (a temporary file where
+    it is None). The launch counts are set to 0 just before and read just
     after; want[name] is True for a kernel that must launch, False for one
     that must not. Prints the aligner's receipts, with the jobs, cells and
     band range per length tier and kernel route (engine_report()'s
@@ -806,7 +824,7 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
     os.environ.update(env)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            out = os.path.join(tmp, "graph.json")
+            out = out or os.path.join(tmp, "graph.json")
             BatchAligner.reset_engine_stats()
             for mod in (sv, sk, ch):
                 mod.reset_launches()
@@ -837,15 +855,7 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
     say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
-    for name, s in kernel_log.items():
-        profiled = {}
-        if device is not None:
-            d = device["kernels"].get(name, {"records": 0, "ms": 0.0})
-            profiled = {"kernel_only_ms": round(d["ms"], 3), "kernel_records": d["records"]}
-        say(f"{phase}.{'dp' if name.startswith('stripe_dp') else 'walk'}_device", kernel=name,
-            launches=s["launches"], device_ms=round(s["ms"], 3), **profiled,
-            device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
-            problems_per_launch_by_B=json.dumps(s["hist"]))
+    say_launch_log(phase, kernel_log, device)
     if device is not None:
         say(f"{phase}.device_busy", wall_s=round(wall, 3), busy_ms=round(device["busy_ms"], 3),
             busy_share=round(device["busy_share"], 5),
@@ -866,6 +876,21 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
     return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log,
             "device": device}
+
+
+def say_launch_log(phase: str, kernel_log: dict, device: dict = None) -> None:
+    """One `.dp_device` or `.walk_device` line per kernel of a launch log
+    (launch_log_summary), with its kernel-only ms where the run was
+    profiled (device_profile)."""
+    for name, s in kernel_log.items():
+        profiled = {}
+        if device is not None:
+            d = device["kernels"].get(name, {"records": 0, "ms": 0.0})
+            profiled = {"kernel_only_ms": round(d["ms"], 3), "kernel_records": d["records"]}
+        say(f"{phase}.{'dp' if name.startswith('stripe_dp') else 'walk'}_device", kernel=name,
+            launches=s["launches"], device_ms=round(s["ms"], 3), **profiled,
+            device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
+            problems_per_launch_by_B=json.dumps(s["hist"]))
 
 
 # The path kernels' names in a profiler trace (csrc/stripe_dp.cu and
@@ -1210,6 +1235,190 @@ def phase_sketch_chain_path(torch, fa: str) -> dict:
     return out
 
 
+def _fresh_block_ids(src: str, dst: str) -> int:
+    """Copy the graph JSON `src` to `dst` with every block under a new id.
+    `simplify` keeps block ids, so two halves simplified from one graph share
+    their core blocks' ids, which `merge` refuses (graph_join, as the
+    reference's does); the halves' paths and nodes do not clash. Returns the
+    number of blocks."""
+    from pangraph_tpu_torch.utils.ids import content_id
+
+    with open(src) as f:
+        doc = json.load(f)
+    new = {int(b): content_id("fresh block id", int(b)) for b in doc["blocks"]}
+    doc["blocks"] = {str(new[int(b)]): {**blk, "id": new[int(b)]} for b, blk in doc["blocks"].items()}
+    for node in doc["nodes"].values():
+        node["block_id"] = new[node["block_id"]]
+    with open(dst, "w") as f:
+        json.dump(doc, f)
+    return len(new)
+
+
+def _cli_step(phase: str, step: str, argv: list, **kv) -> float:
+    """Run one `pangraph_tpu_torch.cli.main` call; fails unless it exits 0.
+    Prints the step's wall on a line of its own; returns it."""
+    from pangraph_tpu_torch import cli
+
+    t0 = time.time()
+    rc = cli.main([str(a) for a in argv])
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"{phase}: `{' '.join(map(str, argv))}` exited {rc}")
+    say(f"{phase}.{step}", wall_s=round(wall, 3), rc=rc, **kv)
+    return wall
+
+
+def _pandas_free_counts(an, L_thr: int) -> dict:
+    """MSU and backbone-junction counts from the analysis layer's parts that
+    need no pandas: backbone blocks (core, consensus >= L_thr) from the
+    graph, walks filtered to them and their co-traveling mergers
+    (topology.find_mergers, as msu.minimal_synteny_units does), and the
+    junctions' flanking edges (junctions.path_junction_split, as
+    BackboneJunctions does)."""
+    from pangraph_tpu_torch.analysis import topology
+    from pangraph_tpu_torch.analysis.junctions import JunctionNode, path_junction_split
+
+    g = an.graph
+    core = set(g.core_block_ids())
+    backbone = {b for b in core if g.blocks[b].consensus_len() >= L_thr}
+    walks = topology.pangraph_to_walks(an)
+    mergers = topology.find_mergers(topology.filter_walks(walks, backbone.__contains__))
+    edges = set()
+    for path in g.paths.values():
+        obs = [JunctionNode(g.nodes[n].block_id, g.nodes[n].strand == "+", n) for n in path.nodes]
+        for j in path_junction_split(topology.Walk(obs, path.circular), backbone.__contains__):
+            if j.flanking_edge() is not None:
+                edges.add(j.flanking_edge().to_str_id())
+    return {"msu": len(set(mergers.values())), "backbone_junctions": len(edges),
+            "walk_categories": len(topology.walk_categories(walks))}
+
+
+def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) -> dict:
+    """Phase 7: the CLI's other subcommands through pangraph_tpu_torch.cli.main
+    on phase 4's graph of the headline (`graph`, built from `fa`), each
+    output checked, each step's wall printed: reconstruct --verify, the four
+    exports, schema, simplify into genomes 0-4 and 5-9 (each half verified),
+    then `merge -c --device cuda` of the halves (half B under fresh block
+    ids, _fresh_block_ids), with the launch counts set to 0 just before it:
+    the DP and walk launched, the checkpoint pair, sketch and chain not, at
+    least half the DP cells on the device, all ten genomes reconstructed
+    exactly. The merged graph goes through the pypangraph facade."""
+    from pangraph_tpu_torch.commands import graph_quality
+    from pangraph_tpu_torch.graph.graph import Pangraph
+    from pangraph_tpu_torch.io.fasta import read_fasta
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+    from pangraph_tpu_torch import pypangraph
+
+    phase = "cli_path"
+    walls = {}
+    g = Pangraph.from_file(graph)
+    names = [p.name for _, p in sorted(g.paths.items())]
+    walls["reconstruct_verify"] = _cli_step(phase, "reconstruct_verify", ["reconstruct", graph, "--verify", fa])
+
+    gfa = os.path.join(work, "graph.gfa")
+    walls["export_gfa"] = _cli_step(phase, "export_gfa", ["export", "gfa", graph, "-o", gfa])
+    with open(gfa) as f:
+        kinds = [line[0] for line in f]
+    if kinds.count("S") != len(g.blocks) or kinds.count("P") != len(names):
+        raise AssertionError(f"{phase}: GFA has {kinds.count('S')} S and {kinds.count('P')} P lines "
+                             f"for {len(g.blocks)} blocks and {len(names)} paths")
+
+    cons = os.path.join(work, "consensus.fa")
+    walls["export_block_consensus"] = _cli_step(phase, "export_block_consensus",
+                                                ["export", "block-consensus", graph, "-o", cons])
+    recs = read_fasta(cons)
+    if sorted(int(r.seq_name) for r in recs) != sorted(g.blocks) or any(
+            not np.array_equal(r.seq, g.blocks[int(r.seq_name)].consensus) for r in recs):
+        raise AssertionError(f"{phase}: block-consensus records differ from the blocks' consensus")
+
+    core = os.path.join(work, "core.fa")
+    walls["export_core_genome"] = _cli_step(phase, "export_core_genome",
+                                            ["export", "core-genome", graph, "-o", core, "--guide-strain", names[0]])
+    core_recs = read_fasta(core, validate=False)
+    lens = {len(r.seq) for r in core_recs}
+    if len(core_recs) != len(names) or len(lens) != 1:
+        raise AssertionError(f"{phase}: core-genome gave {len(core_recs)} records of lengths {sorted(lens)[:4]}")
+
+    blocks_dir = os.path.join(work, "blocks")
+    walls["export_block_sequences"] = _cli_step(phase, "export_block_sequences",
+                                                ["export", "block-sequences", graph, "-o", blocks_dir])
+    if len(os.listdir(blocks_dir)) != len(g.blocks):
+        raise AssertionError(f"{phase}: block-sequences wrote {len(os.listdir(blocks_dir))} files "
+                             f"for {len(g.blocks)} blocks")
+
+    schema = os.path.join(work, "schema.json")
+    walls["schema"] = _cli_step(phase, "schema", ["schema", "-o", schema])
+    with open(schema) as f:
+        if json.load(f).get("title") != "Pangraph":
+            raise AssertionError(f"{phase}: the schema is not the graph's")
+
+    half = len(names) // 2
+    halves = []
+    for i, part in enumerate((names[:half], names[half:])):
+        h = os.path.join(work, f"half_{'ab'[i]}.json")
+        walls[f"simplify_{'ab'[i]}"] = _cli_step(phase, f"simplify_{'ab'[i]}",
+                                                 ["simplify", graph, "-o", h, "-s", ",".join(part)], genomes=len(part))
+        walls[f"verify_half_{'ab'[i]}"] = _cli_step(phase, f"verify_half_{'ab'[i]}", ["reconstruct", h, "--verify", fa])
+        halves.append(h)
+    fresh = os.path.join(work, "half_b_fresh_ids.json")
+    n_fresh = _fresh_block_ids(halves[1], fresh)
+
+    merged = os.path.join(work, "merged.json")
+    BatchAligner.reset_engine_stats()
+    for mod in (sv, sk, ch):
+        mod.reset_launches()
+    sv.KERNEL_TIMING = []
+    try:
+        walls["merge"] = _cli_step(phase, "merge", ["merge", halves[0], fresh, "-c", "--device", "cuda",
+                                                    "-o", merged], half_b_blocks_renamed=n_fresh)
+        torch.cuda.synchronize()
+        kernel_log = launch_log_summary(sv.KERNEL_TIMING)
+    finally:
+        sv.KERNEL_TIMING = None
+    launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
+    report = BatchAligner.engine_report()
+    say(f"{phase}.merge_launches", launches=json.dumps(launches))
+    say(f"{phase}.merge_engines", report=json.dumps(report))
+    say_launch_log(f"{phase}.merge", kernel_log)
+    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                       "sketch": False, "chain": False}.items():
+        if must and launches[name] <= 0:
+            raise AssertionError(f"{phase}: merge never launched {name}: {launches}")
+        if not must and launches[name] != 0:
+            raise AssertionError(f"{phase}: merge launched {name} off its path: {launches}")
+    if (report["device_cells_frac"] or 0) < 0.5:
+        raise AssertionError(f"{phase}: merge device_cells_frac {report['device_cells_frac']} < 0.5")
+    walls["verify_merged"] = _cli_step(phase, "verify_merged", ["reconstruct", merged, "--verify", fa])
+    mg = Pangraph.from_file(merged)
+    if sorted(p.name for p in mg.paths.values()) != sorted(names):
+        raise AssertionError(f"{phase}: the merged graph holds {len(mg.paths)} of {len(names)} genomes")
+    quality = graph_quality(mg)
+    say(f"{phase}.merge_quality", **{k: f"{quality[k]}(build {main_quality[k]})" for k in REFERENCE_QUALITY},
+        n_core_blocks=quality["n_core_blocks"], note="no_bound_a_merge_of_two_halves_is_not_a_build")
+
+    t0 = time.time()
+    try:
+        import jsonschema  # noqa: F401
+        import pandas  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    an = pypangraph.Pangraph.from_json(merged, validate=have)
+    if have:
+        _mergers, msu_paths, msu_len = pypangraph.minimal_synteny_units(an, 500)
+        bj = pypangraph.junctions.BackboneJunctions(an, L_thr=500)
+        counts = {"msu": len(msu_len), "backbone_junctions": len(bj.edges()), "via": "pandas"}
+    else:
+        counts = {**_pandas_free_counts(an, 500), "via": "topology_without_pandas"}
+    walls["analysis"] = time.time() - t0
+    say(f"{phase}.analysis", wall_s=round(walls["analysis"], 3), strains=len(an.strains()), **counts)
+    say(phase, wall_s=round(sum(walls.values()), 3), merge_wall_s=round(walls["merge"], 3))
+    return {"launches": launches, "report": report, "quality": quality, "walls": walls, "kernels": kernel_log}
+
+
 KERNEL_FILES = {
     "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
     "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
@@ -1232,10 +1441,12 @@ def _timed_by(name: str) -> str:
     return "profiler, events in some phase" if profiled[name] in EVENT_TIMED else "profiler"
 
 
-def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict) -> dict:
+def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
+             cli_path: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
-    the headline's default path, the checkpoint pair on the long-tier path,
-    the sketch and chain on phase 6), worst error against its plain version
+    the headline's default path, and on phase 7's merge as
+    `merge_launches`; the checkpoint pair on the long-tier path, the sketch
+    and chain on phase 6), worst error against its plain version
     over every shape it was held at, and its times and bound at one shape
     where both were timed (for the sketch and chain, phase 6's own; the two
     DP modes and the chain also carry their dependency bound and which bound
@@ -1263,6 +1474,8 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         })
         if "dep_bound_ms" in bound:
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
+        if path is main_path:
+            rows[-1]["merge_launches"] = cli_path["launches"][name]
     sketch_path = sc_path["sketch"][(19, 19)]
     for name, path, worst, shape in (
         ("sketch", sketch_path, max([sc["worst"]["sketch"]] + [x["err"] for x in sc_path["sketch"].values()]),
@@ -1310,11 +1523,14 @@ def main() -> int:
             fa = os.path.join(tmp, "headline.fa")
             t0 = time.time()
             say("headline", input_bp=headline_fasta(fa), setup_s=round(time.time() - t0, 1))
+            graph = os.path.join(tmp, "headline.json")
             main_path = phase_build_path(torch, "main_path", fa, {},
-                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False}, profile=True)
+                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False}, profile=True,
+                                         out=graph)
             long_tier = phase_build_path(torch, "long_tier", fa, {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
                                          {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
             sc_path = phase_sketch_chain_path(torch, fa)
+            cli_path = phase_cli_path(torch, fa, graph, tmp, main_path["quality"])
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
@@ -1322,7 +1538,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -27,7 +27,7 @@ def test_port_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30 and bad == "[]"
+    assert int(n) >= 55 and bad == "[]"
 
 
 def test_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch, capsys):
@@ -40,6 +40,25 @@ def test_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch, capsys):
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "no CUDA device" in err[0]
     assert not (tmp_path / "g.json").exists()
+
+
+@pytest.mark.parametrize("device_flag", [["--device", "cuda"], []], ids=["device-cuda", "default"])
+def test_merge_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch, capsys, device_flag):
+    """`merge` aligns on the card unless told otherwise: without one it exits
+    1 before it reads a graph, and does not merge on the CPU."""
+    import pangraph_tpu_torch.build.merge as merge_mod
+    from pangraph_tpu_torch.cli import main
+
+    def no_merge(*a, **k):
+        raise AssertionError("merged without a card")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(merge_mod, "merge_graphs", no_merge)
+    out = tmp_path / "m.json"
+    assert main(["merge", str(tmp_path / "a.json"), str(tmp_path / "b.json"), *device_flag, "-o", str(out)]) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "no CUDA device" in err[0]
+    assert not out.exists()
 
 
 def _problem(device="cpu"):
