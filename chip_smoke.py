@@ -37,8 +37,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    and 20,000 anchors, f and parent equal; kernel and plain times printed,
    with the chain's cycles a step and the sketch's SM cycles a window start
    and its bytes and operations bounds;
-4. the main path: `build -c -f -j 2 --device cuda` through the CLI on the
-   headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
+4. the main path: `build -c -f -j 2 --device cuda --devices 1` through the
+   CLI (one device on any host) on the headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
    with an exact roundtrip, the DP and walk launched, the checkpoint pair
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
@@ -80,7 +80,26 @@ Phases, one line each (any failure exits non-zero and prints no result):
    exactly; the merged graph's quality beside phase 4's (no bound), its
    launch-log lines, and its MSU and backbone-junction counts through the
    pypangraph facade (through the analysis layer's pandas-free parts where
-   pandas is absent).
+   pandas is absent);
+8. the mesh path: the headline build again with its alignment launches
+   split over a mesh (parallel/mesh.py): `build -c -f -j 2 --device cuda
+   --devices <cards>` through the CLI where there are two cards or more,
+   else build() with the CLI's arguments and a BatchAligner over two
+   shards of card 0 (and the CLI's `--devices 2` must exit 1), with the
+   launch counts set to 0 just before it: the graph byte-equal to phase
+   4's, an exact roundtrip, the DP and walk launched on every shard and
+   card (launches and device ms per card from the launch log, launches and
+   DP cells per shard from the aligner), the checkpoint pair, sketch and
+   chain not, the device cells equal to phase 4's and at least half of
+   all cells; then one checkpoint-route round on two shards against one
+   device on 4 of phase 3's (128, 65536) problems, Edits equal;
+9. the cluster path: two worker processes
+   (parallel/distributed.launch_local_cluster, a gloo process group, the
+   merge tree split through the TCP coordinator, each worker's launches
+   over two shards of card 0) on the reference's worker workload (6 x 900
+   bp): both graphs equal to a solo build's on the card, the group's sum
+   equal to the cluster's 4 shards, 1-5 merges claimed, the DP and walk
+   launched in the workers.
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
 walk's, the chain's and the sketch's: theirs are kernel-only, from
@@ -94,7 +113,8 @@ and the kernel's receipt says "timed_by": "profiler, events in some phase".
 
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, the DP's and walk's also on phase
-7's merge, its worst error against its plain version, its
+7's merge, the four alignment kernels' on phase 8's mesh, its worst error
+against its plain version, its
 time and its plain version's, and its bound) and the card's name and power
 limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -658,7 +678,7 @@ def _walk_ckpt_parts(torch, sv, args, K: int) -> dict:
         log = sv.KERNEL_TIMING
     finally:
         sv.KERNEL_TIMING = None
-    ms = {name: sum(e[4].elapsed_time(e[5]) for e in log if e[0] == name)
+    ms = {name: sum(start.elapsed_time(end) for n, _B, _R, _m, _dev, start, end in log if n == name)
           for name in ("walk_ckpt.rederive", "walk_ckpt.walk")}
     return {"waves": sum(e[0] == "walk_ckpt.walk" for e in log), "rederive_ms": ms["walk_ckpt.rederive"],
             "walk_ms": ms["walk_ckpt.walk"]}
@@ -833,8 +853,10 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             try:
                 with torch.profiler.profile(activities=activities) if profile else contextlib.nullcontext() as prof:
                     t0 = time.time()
-                    rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar",
-                                   "-o", out])
+                    # --devices 1: the one-device build on any host, which
+                    # phase 8's mesh build is held against
+                    rc = cli.main(["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--devices", "1",
+                                   "--no-progress-bar", "-o", out])
                     wall = time.time() - t0
                     torch.cuda.synchronize()
                 kernel_log = launch_log_summary(sv.KERNEL_TIMING)
@@ -889,6 +911,7 @@ def say_launch_log(phase: str, kernel_log: dict, device: dict = None) -> None:
             profiled = {"kernel_only_ms": round(d["ms"], 3), "kernel_records": d["records"]}
         say(f"{phase}.{'dp' if name.startswith('stripe_dp') else 'walk'}_device", kernel=name,
             launches=s["launches"], device_ms=round(s["ms"], 3), **profiled,
+            by_device=json.dumps({d: [n, round(ms, 3)] for d, (n, ms) in s["by_device"].items()}),
             device_ms_by_B=json.dumps({b: round(v, 3) for b, v in s["ms_by_B"].items()}),
             problems_per_launch_by_B=json.dumps(s["hist"]))
 
@@ -927,19 +950,23 @@ def device_profile(events: list, wall_s: float) -> dict:
 
 def launch_log_summary(log: list) -> dict:
     """Per kernel of a build's launch log (stripe_v2.KERNEL_TIMING, read after
-    a synchronize): launches, summed device ms, in all and per B (each launch's own event pair
-    on its stream; the merge threads' streams may overlap, so the sum can
-    pass the busy time), and per B a histogram of problems per launch as
-    {B: {"1-8": n, "9-32": n, ...}}, the bins split at 8, 32, 132 (the
+    a synchronize): launches, summed device ms, in all, per B and per device
+    as {"cuda:i": [launches, ms]} (each launch's own event pair on its
+    stream; the merge threads' and shards' streams may overlap, so the sum
+    can pass the busy time), and per B a histogram of problems per launch
+    as {B: {"1-8": n, "9-32": n, ...}}, the bins split at 8, 32, 132 (the
     card's SMs), 512 and 2048 problems."""
     bins = [(1, 8), (9, 32), (33, 132), (133, 512), (513, 2048), (2049, 1 << 30)]
     out = {}
-    for name, B, _R, m, start, end in log:
-        s = out.setdefault(name, {"launches": 0, "ms": 0.0, "hist": {}, "ms_by_B": {}})
+    for name, B, _R, m, dev, start, end in log:
+        s = out.setdefault(name, {"launches": 0, "ms": 0.0, "hist": {}, "ms_by_B": {}, "by_device": {}})
         ms = start.elapsed_time(end)
         s["launches"] += 1
         s["ms"] += ms
         s["ms_by_B"][str(B)] = s["ms_by_B"].get(str(B), 0.0) + ms
+        d = s["by_device"].setdefault(f"cuda:{dev}", [0, 0.0])
+        d[0] += 1
+        d[1] += ms
         lo, hi = next(b for b in bins if b[0] <= m <= b[1])
         h = s["hist"].setdefault(str(B), {})
         key = f"{lo}-{hi}" if hi < 1 << 30 else f"{lo}+"
@@ -1419,6 +1446,188 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     return {"launches": launches, "report": report, "quality": quality, "walls": walls, "kernels": kernel_log}
 
 
+# phase 8's checkpoint-route round: this many of phase 3's (B 128, R 65536)
+# problems (kernel_inputs, seed 200), in 58 bp bands (W = 63 with the
+# aligner's 5 extra), which 2 shards split 2 and 2
+MESH_CKPT_PROBLEMS = 4
+
+
+def _mesh_build(torch, fa: str, out: str, n_cards: int) -> tuple:
+    """Phase 8's build of `fa` into `out`, as phase 4's `build -c -f -j 2
+    --device cuda`: through the CLI with `--devices <n_cards>` where there
+    are two cards or more, else through build() with the CLI's BuildArgs
+    and a BatchAligner over a mesh of two shards of card 0. Returns (how,
+    wall s); a roundtrip mismatch raises."""
+    from pangraph_tpu_torch import cli
+    from pangraph_tpu_torch.build.build import build
+    from pangraph_tpu_torch.io.fasta import read_fasta
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+    from pangraph_tpu_torch.parallel.mesh import make_mesh
+
+    argv = ["build", fa, "-c", "-f", "-j", "2", "--device", "cuda", "--no-progress-bar"]
+    t0 = time.time()
+    if n_cards >= 2:
+        rc = cli.main(argv + ["--devices", str(n_cards), "-o", out])
+        if rc != 0:
+            raise AssertionError(f"build --devices {n_cards} exited {rc}")
+        return f"cli_devices_{n_cards}", time.time() - t0
+    args = cli.build_args_of(cli.build_parser().parse_args(argv))
+    aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device="cuda",
+                           mesh=make_mesh(devices=["cuda:0"] * 2))
+    build(read_fasta(fa), args, aligner=aligner).to_file(out)  # -f: verify_roundtrip raises on a mismatch
+    return "build_api_cuda0_x2", time.time() - t0
+
+
+def _mesh_ckpt_round(torch) -> dict:
+    """One align round on the checkpoint route (ckpt_paths_bytes=0): a
+    2-shard aligner on card 0 against a one-device aligner, on
+    MESH_CKPT_PROBLEMS of phase 3's (128, 65536) problems; their Edits must
+    be equal and apply exactly. The launch counts are set to 0 just before
+    the sharded round and read just after."""
+    from pangraph_tpu_torch.align.params import BandedAlignParams, BandParameters
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+    from pangraph_tpu_torch.ops.batch_align import AlignJob, BatchAligner
+    from pangraph_tpu_torch.parallel.mesh import make_mesh
+
+    ref_in, qry_in, rlen, qlen, ms, _W = kernel_inputs(128, 65536, 8, seed=200)
+    jobs = [AlignJob(ref_in[s, : rlen[s]], qry_in[s, : qlen[s]], BandParameters(int(ms[s]), 58))
+            for s in range(MESH_CKPT_PROBLEMS)]
+    one = BatchAligner(BandedAlignParams(), 5, 4, device="cuda", ckpt_paths_bytes=0).align_many(jobs)
+    BatchAligner.reset_engine_stats()
+    sv.reset_launches()
+    t0 = time.time()
+    sharded = BatchAligner(BandedAlignParams(), 5, 4, device="cuda", ckpt_paths_bytes=0,
+                           mesh=make_mesh(devices=["cuda:0"] * 2)).align_many(jobs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(sv.LAUNCHES)
+    report = BatchAligner.engine_report()
+    equal = sum(a == b for a, b in zip(one, sharded))
+    exact = sum(bool(np.array_equal(e.apply(j.ref), j.qry)) for e, j in zip(sharded, jobs))
+    say("mesh_path.ckpt_round", problems=len(jobs), shards=2, wall_s=round(wall, 3), launches=json.dumps(launches),
+        routes=json.dumps(report["device_routes"]), tiers=json.dumps(report["device_tiers"]),
+        shard_launches=json.dumps(report["device_shards"]), edits_equal=equal, exact=exact)
+    if equal != len(jobs) or exact != len(jobs):
+        raise AssertionError(f"mesh_path: the 2-shard checkpoint round's Edits differ from one device's "
+                             f"({equal} equal, {exact} exact of {len(jobs)})")
+    if launches["stripe_dp_ckpt"] <= 0 or launches["walk_ckpt"] <= 0 or launches["stripe_dp"] or launches["walk"]:
+        raise AssertionError(f"mesh_path: the checkpoint round launched {launches}")
+    if len(report["device_shards"]) != 2:
+        raise AssertionError(f"mesh_path: the checkpoint round ran on {report['device_shards']}, not 2 shards")
+    return {"launches": launches}
+
+
+def phase_mesh_path(torch, fa: str, main_graph: str, main_report: dict, work: str) -> dict:
+    """Phase 8: the headline build with its launches split over a mesh
+    (_mesh_build), with the launch counts set to 0 just before it and read
+    just after: the graph byte-equal to phase 4's (`main_graph`), the DP and
+    walk launched on every shard, the checkpoint pair, sketch and chain not,
+    the device cells equal to phase 4's, at least half of them on the
+    device. On one card, the CLI's `--devices 2` must exit 1. Then one
+    checkpoint-route round on two shards (_mesh_ckpt_round)."""
+    from pangraph_tpu_torch import cli
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+
+    phase = "mesh_path"
+    n_cards = torch.cuda.device_count()
+    if n_cards == 1:
+        refused = os.path.join(work, "refused.json")
+        rc = cli.main(["build", fa, "--device", "cuda", "--devices", "2", "--no-progress-bar", "-o", refused])
+        say(f"{phase}.cli_refuses", devices=2, cards=n_cards, rc=rc)
+        if rc != 1 or os.path.exists(refused):
+            raise AssertionError(f"{phase}: build --devices 2 on one card exited {rc}, not 1")
+    out = os.path.join(work, "mesh.json")
+    torch.cuda.empty_cache()
+    BatchAligner.reset_engine_stats()
+    for mod in (sv, sk, ch):
+        mod.reset_launches()
+    sv.KERNEL_TIMING = []
+    try:
+        how, wall = _mesh_build(torch, fa, out, n_cards)
+        torch.cuda.synchronize()
+        kernel_log = launch_log_summary(sv.KERNEL_TIMING)
+    finally:
+        sv.KERNEL_TIMING = None
+    launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
+    report = BatchAligner.engine_report()
+    with open(out, "rb") as f, open(main_graph, "rb") as g:
+        same_graph = f.read() == g.read()
+    shards = report["device_shards"]
+    cells, main_cells = report["device"]["cells"], main_report["device"]["cells"]
+    say(phase, how=how, cards=n_cards, wall_s=round(wall, 3), roundtrip="exact", graph_equals_main_path=same_graph,
+        launches=json.dumps(launches), device_cells=cells, main_path_device_cells=main_cells,
+        device_cells_frac=report["device_cells_frac"])
+    say(f"{phase}.shards", **{k.replace(":", "_"): f"{v['launches']}launches/{v['cells']}cells"
+                              for k, v in shards.items()})
+    say(f"{phase}.engines", report=json.dumps(report))
+    say_launch_log(phase, kernel_log)
+    if not same_graph:
+        raise AssertionError(f"{phase}: the mesh build's graph differs from phase 4's")
+    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                       "sketch": False, "chain": False}.items():
+        if must and launches[name] <= 0:
+            raise AssertionError(f"{phase}: kernel {name} was never launched: {launches}")
+        if not must and launches[name] != 0:
+            raise AssertionError(f"{phase}: kernel {name} was launched off its path: {launches}")
+    n_shards = max(n_cards, 2)
+    if len(shards) != n_shards or any(v["launches"] <= 0 for v in shards.values()):
+        raise AssertionError(f"{phase}: not every one of the {n_shards} shards launched: {shards}")
+    cards_used = {d for name in ("stripe_dp", "walk") for d in kernel_log[name]["by_device"]}
+    if len(cards_used) != n_cards:
+        raise AssertionError(f"{phase}: the DP and walk ran on {sorted(cards_used)} of {n_cards} cards")
+    if cells != main_cells:
+        raise AssertionError(f"{phase}: {cells} device cells, phase 4 had {main_cells}")
+    if (report["device_cells_frac"] or 0) < 0.5:
+        raise AssertionError(f"{phase}: device_cells_frac {report['device_cells_frac']} < 0.5")
+    ckpt = _mesh_ckpt_round(torch)
+    return {"launches": launches, "report": report, "wall_s": wall, "kernels": kernel_log,
+            "ckpt_launches": ckpt["launches"]}
+
+
+def phase_cluster(torch, work: str) -> dict:
+    """Phase 9: two worker processes through
+    distributed.launch_local_cluster(device="cuda", local_shards=2) on the
+    reference's worker workload (6 x 900 bp): a gloo process group, the
+    merge tree split through the TCP coordinator, each worker's launches
+    over two shards of card 0. Both digests equal, and equal to a solo
+    build's on the card; the sum over the group equals the cluster's
+    shards; 1-5 merges claimed; the DP and walk launched in the workers
+    (each worker counts its own launches)."""
+    from pangraph_tpu_torch.align.params import AlignmentArgs, BuildArgs
+    from pangraph_tpu_torch.build.build import build
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+    from pangraph_tpu_torch.parallel import distributed as dist_mod
+
+    phase = "cluster"
+    t0 = time.time()
+    results = dist_mod.launch_local_cluster(n_processes=2, device="cuda", local_shards=2, genomes=6, length=900,
+                                            timeout_s=300, out_dir=os.path.join(work, "cluster"))
+    wall = time.time() - t0
+    args = BuildArgs(circular=False, jobs=2, aln_args=AlignmentArgs())
+    solo = build(dist_mod._synth_records(seed=3, n=6, L=900), args,
+                 aligner=BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts,
+                                      device="cuda"))
+    solo_digest = dist_mod.graph_digest(solo)
+    launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+    claims = sum(r["merges_claimed"] for r in results)
+    say(phase, processes=len(results), wall_s=round(wall, 3), digest=results[0]["digest"], solo_digest=solo_digest,
+        blocks=results[0]["blocks"], psum=json.dumps([r["psum"] for r in results]),
+        global_devices=json.dumps([r["global_devices"] for r in results]), merges_claimed=claims,
+        launches=json.dumps(launches), shards=json.dumps([r["shards"] for r in results]))
+    if {r["digest"] for r in results} != {solo_digest}:
+        raise AssertionError(f"{phase}: the workers' graphs differ from the solo build's")
+    if any(r["psum"] != 4.0 or r["global_devices"] != 4 for r in results):
+        raise AssertionError(f"{phase}: the group's sum is not the cluster's 4 shards")
+    if not 1 <= claims <= 5:
+        raise AssertionError(f"{phase}: {claims} merges claimed, not 1-5")
+    if launches["stripe_dp"] <= 0 or launches["walk"] <= 0:
+        raise AssertionError(f"{phase}: the workers never launched the DP and walk: {launches}")
+    return {"launches": launches, "wall_s": wall}
+
+
 KERNEL_FILES = {
     "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
     "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
@@ -1442,11 +1651,12 @@ def _timed_by(name: str) -> str:
 
 
 def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
-             cli_path: dict) -> dict:
+             cli_path: dict, mesh_path: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
     the headline's default path, and on phase 7's merge as
     `merge_launches`; the checkpoint pair on the long-tier path, the sketch
-    and chain on phase 6), worst error against its plain version
+    and chain on phase 6; the four alignment kernels on phase 8's mesh as
+    `mesh_launches`), worst error against its plain version
     over every shape it was held at, and its times and bound at one shape
     where both were timed (for the sketch and chain, phase 6's own; the two
     DP modes and the chain also carry their dependency bound and which bound
@@ -1476,6 +1686,9 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
         if path is main_path:
             rows[-1]["merge_launches"] = cli_path["launches"][name]
+            rows[-1]["mesh_launches"] = mesh_path["launches"][name]
+        else:
+            rows[-1]["mesh_launches"] = mesh_path["ckpt_launches"][name]
     sketch_path = sc_path["sketch"][(19, 19)]
     for name, path, worst, shape in (
         ("sketch", sketch_path, max([sc["worst"]["sketch"]] + [x["err"] for x in sc_path["sketch"].values()]),
@@ -1531,6 +1744,8 @@ def main() -> int:
                                          {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
             sc_path = phase_sketch_chain_path(torch, fa)
             cli_path = phase_cli_path(torch, fa, graph, tmp, main_path["quality"])
+            mesh_path = phase_mesh_path(torch, fa, graph, main_path["report"], tmp)
+            phase_cluster(torch, tmp)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
@@ -1538,7 +1753,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -5,7 +5,8 @@ surface): build, export {gfa, block-consensus, block-sequences,
 core-genome}, simplify, reconstruct, schema, completions, help-markdown and
 merge. `build` and `merge` choose where the alignment kernels run with
 `--device {cuda,cpu}`, or run every alignment on the host C++ engine with
-`--no-tpu`. Run as `python -m pangraph_tpu_torch.cli` or through the
+`--no-tpu`; `build --devices N` splits its alignment launches over N cards
+(parallel/mesh.py). Run as `python -m pangraph_tpu_torch.cli` or through the
 `pangraph-tpu-torch` entry point.
 """
 from __future__ import annotations
@@ -72,6 +73,13 @@ def build_parser():
         "a coordination server (the first worker to bind it hosts it), with no shared filesystem",
     )
     _add_device(b)
+    b.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        help="Split alignment launches over this many CUDA cards (default: every visible card; 1 disables "
+        "the mesh); under --device cpu, over this many CPU shards (default 1)",
+    )
     b.add_argument("--trace", action="store_true", help="Log per-phase wall-time breakdown at the end")
     b.add_argument("--no-progress-bar", action="store_true")
     b.add_argument("--upper-case", action="store_true", help="Uppercase input sequences (always on)")
@@ -213,10 +221,36 @@ def _no_card(args) -> bool:
     return True
 
 
-def _aligner(args, build_args):
-    """The BatchAligner for `--device` (or the host engine under --no-tpu);
-    None under --no-tpu where no C++ toolchain builds the host engine: the
-    numpy aligner then aligns every job on its own, as the reference does."""
+def _mesh(args):
+    """The mesh that `build --devices` asks for, or None for one device and
+    under --no-tpu. More devices than there are raises ValueError (exit 1);
+    this runs before any aligner is built."""
+    if args.no_tpu:
+        return None
+    import os
+
+    import torch
+
+    if args.device == "cuda":
+        have, what = torch.cuda.device_count(), "CUDA device(s)"
+        n = have if args.devices is None else args.devices
+    else:
+        have, what = os.cpu_count() or 1, "CPU core(s)"
+        n = 1 if args.devices is None else args.devices
+    if n > have:
+        raise ValueError(f"--devices {n}: only {have} {what} available")
+    if n <= 1:
+        return None
+    from pangraph_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, device=args.device)
+
+
+def _aligner(args, build_args, mesh=None):
+    """The BatchAligner for `--device` (or the host engine under --no-tpu),
+    its launches split over `mesh` where one is given; None under --no-tpu
+    where no C++ toolchain builds the host engine: the numpy aligner then
+    aligns every job on its own, as the reference does."""
     from pangraph_tpu_torch import native
     from pangraph_tpu_torch.ops.batch_align import BatchAligner
 
@@ -224,20 +258,15 @@ def _aligner(args, build_args):
         return None
     return BatchAligner(
         build_args.banded_params, build_args.extra_band_width, build_args.max_alignment_attempts,
-        device=None if args.no_tpu else args.device,
+        device=None if args.no_tpu else args.device, mesh=mesh,
     )
 
 
-def _cmd_build(args) -> int:
+def build_args_of(args):
+    """The BuildArgs of a parsed `build` command line."""
     from pangraph_tpu_torch.align.params import AlignmentArgs, BuildArgs
-    from pangraph_tpu_torch.build.build import build
-    from pangraph_tpu_torch.io.fasta import read_fasta
-    from pangraph_tpu_torch.utils import trace
-    from pangraph_tpu_torch.utils.progress import ProgressBar
 
-    if _no_card(args):
-        return 1
-    build_args = BuildArgs(
+    return BuildArgs(
         circular=args.circular,
         max_self_map=args.max_self_map,
         extra_band_width=args.extra_band_width,
@@ -255,6 +284,18 @@ def _cmd_build(args) -> int:
             kmer_length=args.kmer_length,
         ),
     )
+
+
+def _cmd_build(args) -> int:
+    from pangraph_tpu_torch.build.build import build
+    from pangraph_tpu_torch.io.fasta import read_fasta
+    from pangraph_tpu_torch.utils import trace
+    from pangraph_tpu_torch.utils.progress import ProgressBar
+
+    if _no_card(args):
+        return 1
+    mesh = _mesh(args)
+    build_args = build_args_of(args)
     find_matches = None
     if args.alignment_kernel == "mmseqs":
         # mmseqs finds the matches; the merges' alignments still go through
@@ -263,7 +304,7 @@ def _cmd_build(args) -> int:
 
         check_mmseqs()
         find_matches = make_mmseqs_find_matches(build_args)
-    aligner = _aligner(args, build_args)
+    aligner = _aligner(args, build_args, mesh)
     if args.trace:
         trace.enable(True)
     recs = read_fasta(args.input_fastas)

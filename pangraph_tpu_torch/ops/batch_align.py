@@ -23,6 +23,12 @@ group of 8 problems over a launch's share of the budget), or when the
 reference's explicit override says so: its per-problem record bytes
 R_cap * (B + 128) * 2 over `ckpt_paths_bytes` (by default the
 PANGRAPH_TPU_CKPT_BYTES environment variable, as in the reference).
+
+With a mesh (parallel/mesh.py), each planned launch is split over the
+mesh's shards after planning, interleaved (`shard_jobs`): every shard's
+problems keep the launch's (R_cap, B, K, route), so each problem's events,
+and so the retries and the graph, are those of one device. Every shard's
+launches are queued on its own stream before the first copy to the host.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from pangraph_tpu_torch.ops.stripe_v2 import (
     walk_ckpt_buffers,
     walk_segment,
 )
+from pangraph_tpu_torch.parallel.mesh import Mesh, resolve_device, shard_jobs
 from pangraph_tpu_torch.utils import trace
 
 
@@ -109,6 +116,8 @@ class BatchAligner:
     the host C++ engine for the jobs the kernels cannot take. device=None
     aligns every job on the host engine. ckpt_paths_bytes is the override
     that sends tiers to the checkpoint route (see the module docstring).
+    `mesh` (parallel.mesh.Mesh, of `device`'s type) splits every launch
+    over its devices; without one, `self.mesh` is the one device's.
     Thread-safe: merges call align_many from several threads."""
 
     # length tiers: a job rides the smallest tier >= its length + 2; jobs
@@ -142,9 +151,12 @@ class BatchAligner:
     # ("device.stripe.<R_cap>.<B>", "device.ckpt.<R_cap>.<B>"; its seconds
     # are the device leg's)
     STATS = []
+    # per shard ("<shard>:<device>"): [launches, device cells]; a launch is
+    # one DP and one walk
+    SHARDS = {}
 
     def __init__(self, params: BandedAlignParams = None, extra_band_width: int = 5, max_attempts: int = 4,
-                 device="cuda", ckpt_paths_bytes: int = None):
+                 device="cuda", ckpt_paths_bytes: int = None, mesh: Mesh = None):
         self.params = params or BandedAlignParams()
         self.extra = extra_band_width
         self.max_attempts = max_attempts
@@ -152,18 +164,30 @@ class BatchAligner:
             ckpt_paths_bytes = int(float(os.environ.get("PANGRAPH_TPU_CKPT_BYTES", 1e18)))
         self.ckpt_paths_bytes = ckpt_paths_bytes
         self.device = None if device is None else torch.device(device)
+        if mesh is not None and (self.device is None or mesh.device_type != self.device.type):
+            raise ValueError(f"a mesh of {mesh.device_type} devices needs device={mesh.device_type!r}, "
+                             f"not {None if self.device is None else str(self.device)!r}")
         if self.device is not None and self.device.type == "cuda":
             from pangraph_tpu_torch.ops import cuda_build
 
             if not torch.cuda.is_available():
                 raise RuntimeError("BatchAligner(device='cuda'): no CUDA device is available")
-            free, _total = torch.cuda.mem_get_info(self.device)
-            self.budget = int(free * self.DEVICE_MEMORY_SHARE)
             cuda_build.build_all()  # compile the kernels now, not inside a round
-        else:
-            self.budget = self.HOST_RECORD_BYTES
+        self.mesh = mesh or (None if self.device is None else Mesh((resolve_device(self.device),)))
+        # per physical device: its record budget and the bytes granted to the
+        # rounds in flight there (shards on one device share both)
+        self._budget = {}
+        for dev in dict.fromkeys(self.mesh.devices if self.mesh else ()):
+            if dev.type == "cuda":
+                free, _total = torch.cuda.mem_get_info(dev)
+                self._budget[dev] = int(free * self.DEVICE_MEMORY_SHARE)
+            else:
+                self._budget[dev] = self.HOST_RECORD_BYTES
+        # launches are planned for the smallest device, so that a launch fits
+        # any one device whole, and the plan is one device's
+        self.budget = min(self._budget.values(), default=self.HOST_RECORD_BYTES)
         self._mem_lock = threading.Condition()
-        self._mem_outstanding = 0
+        self._mem_outstanding = dict.fromkeys(self._budget, 0)
         self._local = threading.local()
 
     def align_many(self, jobs: list) -> list:
@@ -297,6 +321,8 @@ class BatchAligner:
         # per length tier and route: [jobs, cells, B min, B max] (a job
         # retried in a later round counts again)
         out["device_tiers"] = {f"{R_cap}/{route}": v for (R_cap, route), v in sorted(tiers.items())}
+        with cls._ENGINE_LOCK:
+            out["device_shards"] = {k: {"launches": n, "cells": c} for k, (n, c) in sorted(cls.SHARDS.items())}
         return out
 
     @classmethod
@@ -306,6 +332,7 @@ class BatchAligner:
                 e[0] = e[1] = 0
                 e[2] = 0.0
             cls.STATS.clear()
+            cls.SHARDS.clear()
 
     # ------------------------------------------------------------ rounds
 
@@ -520,15 +547,20 @@ class BatchAligner:
                 fb_pool.shutdown(wait=True)
         return edits, boundary, overflow
 
-    def _stream_scope(self):
-        """Each merge thread launches on a CUDA stream of its own, so that one
-        thread's waits (input checks, result copies) do not wait for another
-        thread's kernels."""
-        if self.device.type != "cuda":
+    def _stream_scope(self, shard: int):
+        """Each merge thread launches each shard on a CUDA stream of its own,
+        so that one thread's waits (input checks, result copies) do not wait
+        for another thread's or shard's kernels, and shards on one card
+        overlap."""
+        dev = self.mesh.devices[shard]
+        if dev.type != "cuda":
             return contextlib.nullcontext()
-        stream = getattr(self._local, "stream", None)
+        streams = getattr(self._local, "streams", None)
+        if streams is None:
+            streams = self._local.streams = {}
+        stream = streams.get(shard)
         if stream is None:
-            stream = self._local.stream = torch.cuda.Stream(device=self.device)
+            stream = streams[shard] = torch.cuda.Stream(device=dev)
         return torch.cuda.stream(stream)
 
     @staticmethod
@@ -548,48 +580,64 @@ class BatchAligner:
         return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + sum(t.nbytes for t in walk)
 
     def _run_planned(self, jobs, planned, edits, boundary, overflow) -> None:
-        # one grant per round: launches run one after another on the stream,
-        # and a launch's records are freed once its walk is queued
-        grant = max(self._launch_bytes(jobs, sub, R_cap, B, ckpt) for sub, R_cap, B, _, ckpt in planned)
-        self._mem_acquire(grant)
+        # every launch split over the shards, each shard's part keeping the
+        # launch's (R_cap, B, K, route)
+        shard_launches = [[] for _ in self.mesh.devices]
+        for sub, R_cap, B, K, ckpt in planned:
+            for s, part in shard_jobs(self.mesh, sub):
+                shard_launches[s].append((part, R_cap, B, K, ckpt))
+        # one grant per shard and round: a shard's launches run one after
+        # another on its stream, and a launch's records are freed once its
+        # walk is queued; shards on one device add up
+        grants = {}
+        for s, launches in enumerate(shard_launches):
+            if launches:
+                dev = self.mesh.devices[s]
+                grants[dev] = grants.get(dev, 0) + max(
+                    self._launch_bytes(jobs, part, R_cap, B, ckpt) for part, R_cap, B, _, ckpt in launches)
+        self._mem_acquire(grants)
         try:
-            with self._stream_scope():
-                launched = []
-                for sub, R_cap, B, K, ckpt in planned:
-                    with trace.span("align.pack"):
-                        m = len(sub)
-                        R = max(max(len(jobs[i].ref) for i in sub), 1)
-                        Q = max(max(len(jobs[i].qry) for i in sub), 1)
-                        ref_in = np.zeros((m, R), dtype=np.uint8)
-                        qry_in = np.zeros((m, Q), dtype=np.uint8)
-                        rlen = np.zeros(m, dtype=np.int32)
-                        qlen = np.zeros(m, dtype=np.int32)
-                        msv = np.zeros(m, dtype=np.int32)
-                        Wv = np.full(m, (B - 2) // 2, dtype=np.int32)
-                        for s, i in enumerate(sub):
-                            j = jobs[i]
-                            ref_in[s, : len(j.ref)] = j.ref
-                            qry_in[s, : len(j.qry)] = j.qry
-                            rlen[s] = len(j.ref)
-                            qlen[s] = len(j.qry)
-                            msv[s] = j.band.mean_shift
-                    with trace.span("align.dispatch"):
-                        if ckpt:
-                            out = stripe_align_ckpt(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, R_cap, self.device)
-                        else:
-                            out = stripe_align(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, walk_segment(R_cap, B),
-                                               self.device)
-                    launched.append((sub, K, out))
-                with trace.span("align.fetch"):
-                    fetched = [
-                        (sub, K, {k: v.cpu().numpy() for k, v in out.items()}) for sub, K, out in launched
-                    ]
+            launched = []
+            for s, launches in enumerate(shard_launches):
+                dev = self.mesh.devices[s]
+                with self._stream_scope(s):
+                    for part, R_cap, B, K, ckpt in launches:
+                        with trace.span("align.pack"):
+                            m = len(part)
+                            R = max(max(len(jobs[i].ref) for i in part), 1)
+                            Q = max(max(len(jobs[i].qry) for i in part), 1)
+                            ref_in = np.zeros((m, R), dtype=np.uint8)
+                            qry_in = np.zeros((m, Q), dtype=np.uint8)
+                            rlen = np.zeros(m, dtype=np.int32)
+                            qlen = np.zeros(m, dtype=np.int32)
+                            msv = np.zeros(m, dtype=np.int32)
+                            Wv = np.full(m, (B - 2) // 2, dtype=np.int32)
+                            for p, i in enumerate(part):
+                                j = jobs[i]
+                                ref_in[p, : len(j.ref)] = j.ref
+                                qry_in[p, : len(j.qry)] = j.qry
+                                rlen[p] = len(j.ref)
+                                qlen[p] = len(j.qry)
+                                msv[p] = j.band.mean_shift
+                        with trace.span("align.dispatch"):
+                            if ckpt:
+                                out = stripe_align_ckpt(ref_in, qry_in, rlen, qlen, msv, Wv, B, K, R_cap, dev)
+                            else:
+                                out = stripe_align(ref_in, qry_in, rlen, qlen, msv, Wv, B, K,
+                                                   walk_segment(R_cap, B), dev)
+                        launched.append((s, part, K, out))
+                        self._count_shard(s, sum(self._job_cells(jobs[i], (B - 2) // 2) for i in part))
+            with trace.span("align.fetch"):
+                fetched = []
+                for s, part, K, out in launched:
+                    with self._stream_scope(s):
+                        fetched.append((part, K, {k: v.cpu().numpy() for k, v in out.items()}))
         finally:
-            self._mem_release(grant)
+            self._mem_release(grants)
         with trace.span("align.decode"):
-            for sub, K, out in fetched:
+            for part, K, out in fetched:
                 meta, n_events, rows, words = out["meta"], out["n_events"], out["rows"], out["words"]
-                for s, i in enumerate(sub):
+                for s, i in enumerate(part):
                     j = jobs[i]
                     boundary[i] = bool(meta[s, 2])
                     overflow[i] = int(n_events[s]) > K
@@ -608,17 +656,28 @@ class BatchAligner:
                         # as device cells
                         edits[i] = self._host_fallback(j, False)
 
-    def _mem_acquire(self, nbytes: int) -> None:
-        """Bound the record bytes outstanding across threads. A round larger
-        than the budget proceeds alone."""
-        with self._mem_lock:
-            while self._mem_outstanding > 0 and self._mem_outstanding + nbytes > self.budget:
-                self._mem_lock.wait(timeout=60.0)
-            self._mem_outstanding += nbytes
+    def _count_shard(self, shard: int, cells: int) -> None:
+        with self._ENGINE_LOCK:
+            c = self.SHARDS.setdefault(f"{shard}:{self.mesh.devices[shard]}", [0, 0])
+            c[0] += 1
+            c[1] += cells
 
-    def _mem_release(self, nbytes: int) -> None:
+    def _mem_acquire(self, grants: dict) -> None:
+        """Bound the record bytes outstanding on each device across threads:
+        wait until every device of `grants` ({device: bytes}) has room, then
+        take them all at once. A grant larger than its device's budget
+        proceeds alone there."""
         with self._mem_lock:
-            self._mem_outstanding -= nbytes
+            while any(0 < self._mem_outstanding[d] and self._mem_outstanding[d] + n > self._budget[d]
+                      for d, n in grants.items()):
+                self._mem_lock.wait(timeout=60.0)
+            for d, n in grants.items():
+                self._mem_outstanding[d] += n
+
+    def _mem_release(self, grants: dict) -> None:
+        with self._mem_lock:
+            for d, n in grants.items():
+                self._mem_outstanding[d] -= n
             self._mem_lock.notify_all()
 
     def _host_fallback(self, job: AlignJob, count: bool = True) -> Edit:

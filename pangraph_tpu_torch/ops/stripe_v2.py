@@ -84,9 +84,9 @@ def _count_launch(name: str) -> None:
 
 # Kernel launch log, off unless a caller sets it to a list: each launch of
 # the DP, the walk or the checkpoint pair then appends (name, B, R,
-# problems, start, end), a CUDA event pair recorded on the launch's stream
-# around the kernel. Nothing here synchronizes; the caller reads the events
-# after its own synchronize.
+# problems, device index, start, end), a CUDA event pair recorded on the
+# launch's stream around the kernel. Nothing here synchronizes; the caller
+# reads the events after its own synchronize.
 KERNEL_TIMING = None
 
 
@@ -101,7 +101,7 @@ def _launch_events(device):
 def _log_launch(events, name: str, B: int, R: int, m: int, device) -> None:
     if events is not None:
         events[1].record(torch.cuda.current_stream(device))
-        KERNEL_TIMING.append((name, B, R, m, *events))
+        KERNEL_TIMING.append((name, B, R, m, torch.device(device).index, *events))
 
 
 def walk_segment(R_cap: int, B: int) -> int:

@@ -148,16 +148,16 @@ def _port_flags():
 
 def test_parser_has_every_reference_subcommand():
     """Every subcommand of the reference parses in the port, and every flag
-    of the reference's, except `build --devices`."""
+    of the reference's, `build --devices` included."""
     from pangraph_tpu.cli import _parser_tree as ref_tree
 
     port = port_cli._parser_tree()
     for path, (flags, subs) in ref_tree().items():
         assert path in port, path
-        missing = set(flags) - set(port[path][0]) - ({"--devices"} if path == ("build",) else set())
+        missing = set(flags) - set(port[path][0])
         assert not missing, (path, missing)
         assert port[path][1] == subs
-    assert "--devices" not in port[("build",)][0]
+    assert "--devices" in port[("build",)][0]
     assert {"--device", "--no-tpu"} <= set(port[("merge",)][0])
     assert set(SUBCOMMANDS) == set(port[()][1])
 
@@ -268,7 +268,12 @@ def test_gfa_writers_on_the_ported_fixtures(params):
     assert len(want) > 3
 
 
-def test_build_does_not_parse_devices():
-    """`build --devices` waits for the port's multi-device layer."""
+def test_build_parses_devices_and_merge_does_not():
+    """`build --devices` parses since the port has its multi-device layer
+    (parallel/mesh.py; tests/test_torch_mesh.py runs it); `merge` still
+    parses no `--devices`, as the reference's has none."""
+    parse = port_cli.build_parser().parse_args
+    assert parse(["build", "x.fa", "--devices", "2"]).devices == 2
+    assert parse(["build", "x.fa"]).devices is None
     with pytest.raises(SystemExit):
-        port_cli.build_parser().parse_args(["build", "x.fa", "--devices", "2"])
+        parse(["merge", "a.json", "b.json", "--devices", "2"])

@@ -22,12 +22,13 @@ def test_port_modules_import_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'pangraph_tpu' or k.startswith('pangraph_tpu.'))\n"
-        "print(len(mods), bad)\n"
+        "print(len(mods), 'pangraph_tpu_torch.parallel.mesh' in mods,\n"
+        "      'pangraph_tpu_torch.parallel.distributed' in mods, bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 55 and bad == "[]"
+    n, mesh, distributed, bad = out.stdout.strip().split(" ", 3)
+    assert int(n) >= 57 and mesh == distributed == "True" and bad == "[]"
 
 
 def test_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch, capsys):
@@ -59,6 +60,22 @@ def test_merge_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch, capsys, d
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "no CUDA device" in err[0]
     assert not out.exists()
+
+
+def test_cuda_mesh_without_cuda_raises(monkeypatch):
+    """A mesh on `cuda` without a card raises; it never becomes a CPU mesh."""
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+    from pangraph_tpu_torch.parallel.distributed import local_mesh
+    from pangraph_tpu_torch.parallel.mesh import make_mesh, make_mesh_aligner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: make_mesh(device="cuda"), lambda: make_mesh(2),
+                 lambda: make_mesh(devices=["cuda:0"] * 2), lambda: local_mesh("cuda", 2),
+                 lambda: make_mesh_aligner(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(ValueError, match="needs device='cpu'"):
+        BatchAligner(device="cuda", mesh=make_mesh(2, device="cpu"))
 
 
 def _problem(device="cpu"):
