@@ -48,7 +48,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    summed device ms, per band width B, and a histogram of problems per
    launch for each B; the build runs under torch.profiler (CUDA activity
    only), which adds each kernel's summed kernel-only ms and the card's busy
-   share of the wall (kernels, copies and memsets);
+   share of the wall (kernels, copies and memsets); the aligner's round
+   broker's combined rounds, the legs they held and the most legs in one
+   round are printed beside the DP and walk launches;
 5. the long-tier path: the same build with PANGRAPH_TPU_CKPT_BYTES=32000000,
    which sends the tiers whose per-problem records pass 32 MB (counted as
    the reference counts them) to the checkpoint pair: exact roundtrip, all
@@ -77,7 +79,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
    keep the core blocks' ids), with the launch counts set to 0 just before
    it: the DP and walk launched, the checkpoint pair, sketch and chain not,
    at least half the DP cells on the device, all ten genomes reconstructed
-   exactly; the merged graph's quality beside phase 4's (no bound), its
+   exactly; then the same merge with the reference's host-leg budget
+   (BatchAligner.NATIVE_CELL_BUDGET = 100,000,000 cells, what
+   PANGRAPH_TPU_NATIVE_BUDGET=100000000 sets), with the same checks and
+   some cells on the host, both walls, device shares and host cells
+   printed; the merged graph's quality beside phase 4's (no bound), its
    launch-log lines, and its MSU and backbone-junction counts through the
    pypangraph facade (through the analysis layer's pandas-free parts where
    pandas is absent);
@@ -91,7 +97,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    card (launches and device ms per card from the launch log, launches and
    DP cells per shard from the aligner), the checkpoint pair, sketch and
    chain not, the device cells equal to phase 4's and at least half of
-   all cells; then one checkpoint-route round on two shards against one
+   all cells; the build runs with a broker gather window of MESH_GATHER_S,
+   and at least one combined round must hold both merge threads' legs, so
+   that the byte-equality holds coalesced rounds against phase 4's; on one
+   card, the summed ms in which the two shards' DP launches ran at once
+   (the launch log's event pairs on one timeline);
+   then one checkpoint-route round on two shards against one
    device on 4 of phase 3's (128, 65536) problems, Edits equal;
 9. the cluster path: two worker processes
    (parallel/distributed.launch_local_cluster, a gloo process group, the
@@ -678,7 +689,7 @@ def _walk_ckpt_parts(torch, sv, args, K: int) -> dict:
         log = sv.KERNEL_TIMING
     finally:
         sv.KERNEL_TIMING = None
-    ms = {name: sum(start.elapsed_time(end) for n, _B, _R, _m, _dev, start, end in log if n == name)
+    ms = {name: sum(start.elapsed_time(end) for n, _B, _R, _m, _dev, start, end, _st in log if n == name)
           for name in ("walk_ckpt.rederive", "walk_ckpt.walk")}
     return {"waves": sum(e[0] == "walk_ckpt.walk" for e in log), "rederive_ms": ms["walk_ckpt.rederive"],
             "walk_ms": ms["walk_ckpt.walk"]}
@@ -831,7 +842,8 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
     activity only), and each kernel's line gains its summed kernel-only
     time from the profiler's kernel records, beside the launch log's event
     pairs, and a `.device_busy` line gives the card's busy share
-    (device_profile)."""
+    (device_profile). A `.broker` line gives the aligner's combined rounds
+    (say_broker)."""
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
@@ -878,6 +890,7 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log, device)
+    say_broker(phase, report, launches, kernel_log)
     if device is not None:
         say(f"{phase}.device_busy", wall_s=round(wall, 3), busy_ms=round(device["busy_ms"], 3),
             busy_share=round(device["busy_share"], 5),
@@ -898,6 +911,18 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
     return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log,
             "device": device}
+
+
+def say_broker(phase: str, report: dict, launches: dict, kernel_log: dict) -> dict:
+    """A `.broker` line: the aligner's combined rounds, the legs they held
+    and the most legs in one (engine_report()["broker"]), beside the DP and
+    walk launches and the DP launches of 1-8 problems at B 128."""
+    broker = report["broker"]
+    small_b128 = kernel_log.get("stripe_dp", {}).get("hist", {}).get("128", {}).get("1-8", 0)
+    say(f"{phase}.broker", rounds=broker["rounds"], legs=broker["legs"], max_legs=broker["max_legs"],
+        dp_launches=launches["stripe_dp"] + launches["stripe_dp_ckpt"],
+        walk_launches=launches["walk"] + launches["walk_ckpt"], dp_launches_b128_1_8_problems=small_b128)
+    return broker
 
 
 def say_launch_log(phase: str, kernel_log: dict, device: dict = None) -> None:
@@ -958,7 +983,7 @@ def launch_log_summary(log: list) -> dict:
     card's SMs), 512 and 2048 problems."""
     bins = [(1, 8), (9, 32), (33, 132), (133, 512), (513, 2048), (2049, 1 << 30)]
     out = {}
-    for name, B, _R, m, dev, start, end in log:
+    for name, B, _R, m, dev, start, end, _stream in log:
         s = out.setdefault(name, {"launches": 0, "ms": 0.0, "hist": {}, "ms_by_B": {}, "by_device": {}})
         ms = start.elapsed_time(end)
         s["launches"] += 1
@@ -1329,14 +1354,12 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     ids, _fresh_block_ids), with the launch counts set to 0 just before it:
     the DP and walk launched, the checkpoint pair, sketch and chain not, at
     least half the DP cells on the device, all ten genomes reconstructed
-    exactly. The merged graph goes through the pypangraph facade."""
+    exactly (_merge_run). The same merge again with the reference's host-leg
+    budget (MERGE_HOST_LEG_BUDGET cells): the same checks, and some cells on
+    the host. The first merged graph goes through the pypangraph facade."""
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
     from pangraph_tpu_torch.io.fasta import read_fasta
-    from pangraph_tpu_torch.ops import chain_k2 as ch
-    from pangraph_tpu_torch.ops import sketch_k1 as sk
-    from pangraph_tpu_torch.ops import stripe_v2 as sv
-    from pangraph_tpu_torch.ops.batch_align import BatchAligner
     from pangraph_tpu_torch import pypangraph
 
     phase = "cli_path"
@@ -1394,31 +1417,20 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     n_fresh = _fresh_block_ids(halves[1], fresh)
 
     merged = os.path.join(work, "merged.json")
-    BatchAligner.reset_engine_stats()
-    for mod in (sv, sk, ch):
-        mod.reset_launches()
-    sv.KERNEL_TIMING = []
-    try:
-        walls["merge"] = _cli_step(phase, "merge", ["merge", halves[0], fresh, "-c", "--device", "cuda",
-                                                    "-o", merged], half_b_blocks_renamed=n_fresh)
-        torch.cuda.synchronize()
-        kernel_log = launch_log_summary(sv.KERNEL_TIMING)
-    finally:
-        sv.KERNEL_TIMING = None
-    launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
-    report = BatchAligner.engine_report()
-    say(f"{phase}.merge_launches", launches=json.dumps(launches))
-    say(f"{phase}.merge_engines", report=json.dumps(report))
-    say_launch_log(f"{phase}.merge", kernel_log)
-    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
-                       "sketch": False, "chain": False}.items():
-        if must and launches[name] <= 0:
-            raise AssertionError(f"{phase}: merge never launched {name}: {launches}")
-        if not must and launches[name] != 0:
-            raise AssertionError(f"{phase}: merge launched {name} off its path: {launches}")
-    if (report["device_cells_frac"] or 0) < 0.5:
-        raise AssertionError(f"{phase}: merge device_cells_frac {report['device_cells_frac']} < 0.5")
-    walls["verify_merged"] = _cli_step(phase, "verify_merged", ["reconstruct", merged, "--verify", fa])
+    runs = {}
+    for label, budget in (("merge", None), ("merge_host_leg", MERGE_HOST_LEG_BUDGET)):
+        out = merged if budget is None else os.path.join(work, "merged_host_leg.json")
+        runs[label] = _merge_run(torch, phase, label, [halves[0], fresh], out, budget, n_fresh)
+        walls[label] = runs[label]["wall_s"]
+        walls[f"verify_{label}"] = _cli_step(phase, f"verify_{label}", ["reconstruct", out, "--verify", fa])
+    launches, report, kernel_log = (runs["merge"][k] for k in ("launches", "report", "kernels"))
+    host_leg = runs["merge_host_leg"]["report"]
+    say(f"{phase}.merge_budgets", budget_env=f"PANGRAPH_TPU_NATIVE_BUDGET={MERGE_HOST_LEG_BUDGET}",
+        wall_s=round(walls["merge"], 3), wall_budget_s=round(walls["merge_host_leg"], 3),
+        device_cells_frac=report["device_cells_frac"], device_cells_frac_budget=host_leg["device_cells_frac"],
+        host_cells=report["host"]["cells"], host_cells_budget=host_leg["host"]["cells"])
+    if host_leg["host"]["cells"] <= 0:
+        raise AssertionError(f"{phase}: the merge under a host-leg budget ran no cells on the host")
     mg = Pangraph.from_file(merged)
     if sorted(p.name for p in mg.paths.values()) != sorted(names):
         raise AssertionError(f"{phase}: the merged graph holds {len(mg.paths)} of {len(names)} genomes")
@@ -1446,6 +1458,62 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     return {"launches": launches, "report": report, "quality": quality, "walls": walls, "kernels": kernel_log}
 
 
+# phase 7's second merge: the reference's default NATIVE_CELL_BUDGET
+# (pangraph_tpu/ops/batch_align.py), the cells a round's host leg may take
+MERGE_HOST_LEG_BUDGET = 100_000_000
+
+
+def _merge_run(torch, phase: str, label: str, halves: list, out: str, budget, n_fresh: int) -> dict:
+    """Phase 7's `merge -c --device cuda` of `halves` into `out`, with the
+    launch counts set to 0 just before it, and BatchAligner.NATIVE_CELL_BUDGET
+    set to `budget` around it where one is given (what
+    PANGRAPH_TPU_NATIVE_BUDGET sets when the class is defined): the DP and
+    walk launched, the checkpoint pair, sketch and chain not, at least half
+    the DP cells on the device."""
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+
+    saved = BatchAligner.NATIVE_CELL_BUDGET
+    BatchAligner.reset_engine_stats()
+    for mod in (sv, sk, ch):
+        mod.reset_launches()
+    sv.KERNEL_TIMING = []
+    try:
+        if budget is not None:
+            BatchAligner.NATIVE_CELL_BUDGET = budget
+        wall = _cli_step(phase, label, ["merge", *halves, "-c", "--device", "cuda", "-o", out],
+                         half_b_blocks_renamed=n_fresh, native_cell_budget=BatchAligner.NATIVE_CELL_BUDGET)
+        torch.cuda.synchronize()
+        kernel_log = launch_log_summary(sv.KERNEL_TIMING)
+    finally:
+        sv.KERNEL_TIMING = None
+        BatchAligner.NATIVE_CELL_BUDGET = saved
+    launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
+    report = BatchAligner.engine_report()
+    say(f"{phase}.{label}_launches", launches=json.dumps(launches))
+    say(f"{phase}.{label}_engines", report=json.dumps(report))
+    say_launch_log(f"{phase}.{label}", kernel_log)
+    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                       "sketch": False, "chain": False}.items():
+        if must and launches[name] <= 0:
+            raise AssertionError(f"{phase}: {label} never launched {name}: {launches}")
+        if not must and launches[name] != 0:
+            raise AssertionError(f"{phase}: {label} launched {name} off its path: {launches}")
+    if (report["device_cells_frac"] or 0) < 0.5:
+        raise AssertionError(f"{phase}: {label} device_cells_frac {report['device_cells_frac']} < 0.5")
+    return {"launches": launches, "report": report, "kernels": kernel_log, "wall_s": wall}
+
+
+# phase 8's broker gather window (BatchAligner.BROKER_GATHER_S, s): two merge
+# threads alternate in the broker (the owner of the round in flight cannot
+# submit), so their legs meet only inside the window after a lone leg; at
+# the default 8 ms they rarely meet on the headline (phase 4's .broker
+# line), at this one often, so that phase 8's byte-equality with phase 4
+# holds coalesced rounds against lone ones
+MESH_GATHER_S = 0.2
+
 # phase 8's checkpoint-route round: this many of phase 3's (B 128, R 65536)
 # problems (kernel_inputs, seed 200), in 58 bp bands (W = 63 with the
 # aligner's 5 extra), which 2 shards split 2 and 2
@@ -1457,7 +1525,8 @@ def _mesh_build(torch, fa: str, out: str, n_cards: int) -> tuple:
     --device cuda`: through the CLI with `--devices <n_cards>` where there
     are two cards or more, else through build() with the CLI's BuildArgs
     and a BatchAligner over a mesh of two shards of card 0. Returns (how,
-    wall s); a roundtrip mismatch raises."""
+    wall s, {stream handle: shard} of that aligner, empty through the CLI);
+    a roundtrip mismatch raises."""
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.build.build import build
     from pangraph_tpu_torch.io.fasta import read_fasta
@@ -1470,12 +1539,42 @@ def _mesh_build(torch, fa: str, out: str, n_cards: int) -> tuple:
         rc = cli.main(argv + ["--devices", str(n_cards), "-o", out])
         if rc != 0:
             raise AssertionError(f"build --devices {n_cards} exited {rc}")
-        return f"cli_devices_{n_cards}", time.time() - t0
+        return f"cli_devices_{n_cards}", time.time() - t0, {}
     args = cli.build_args_of(cli.build_parser().parse_args(argv))
     aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device="cuda",
                            mesh=make_mesh(devices=["cuda:0"] * 2))
     build(read_fasta(fa), args, aligner=aligner).to_file(out)  # -f: verify_roundtrip raises on a mismatch
-    return "build_api_cuda0_x2", time.time() - t0
+    wall = time.time() - t0
+    return "build_api_cuda0_x2", wall, {st.cuda_stream: shard for shard, st in aligner._streams.items()}
+
+
+def shard_overlap_ms(log: list, base, shard_of: dict, name: str = "stripe_dp") -> float:
+    """Summed ms in which shard 0's and shard 1's `name` launches of a launch
+    log ran at once: each launch's event pair placed on one timeline by
+    `base`, an event recorded on the same card before the run; a launch's
+    shard from its stream (`shard_of`)."""
+    spans = {0: [], 1: []}
+    for n, _B, _R, _m, _dev, start, end, stream in log:
+        if n == name and shard_of.get(stream) in spans:
+            spans[shard_of[stream]].append((base.elapsed_time(start), base.elapsed_time(end)))
+    merged = {}
+    for shard, iv in spans.items():
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[shard] = out
+    total, i, j = 0.0, 0, 0
+    a, b = merged[0], merged[1]
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def _mesh_ckpt_round(torch) -> dict:
@@ -1523,8 +1622,12 @@ def phase_mesh_path(torch, fa: str, main_graph: str, main_report: dict, work: st
     just after: the graph byte-equal to phase 4's (`main_graph`), the DP and
     walk launched on every shard, the checkpoint pair, sketch and chain not,
     the device cells equal to phase 4's, at least half of them on the
-    device. On one card, the CLI's `--devices 2` must exit 1. Then one
-    checkpoint-route round on two shards (_mesh_ckpt_round)."""
+    device. The build runs with the broker's gather window at MESH_GATHER_S,
+    and at least one combined round must hold two merge threads' legs: the
+    byte-equality then holds coalesced rounds against phase 4's. On one
+    card, the CLI's `--devices 2` must exit 1, and the summed time in which
+    the two shards' DP launches ran at once is printed (shard_overlap_ms).
+    Then one checkpoint-route round on two shards (_mesh_ckpt_round)."""
     from pangraph_tpu_torch import cli
     from pangraph_tpu_torch.ops import chain_k2 as ch
     from pangraph_tpu_torch.ops import sketch_k1 as sk
@@ -1545,27 +1648,39 @@ def phase_mesh_path(torch, fa: str, main_graph: str, main_report: dict, work: st
     for mod in (sv, sk, ch):
         mod.reset_launches()
     sv.KERNEL_TIMING = []
+    base = torch.cuda.Event(enable_timing=True)
+    base.record()
+    gather = BatchAligner.BROKER_GATHER_S
+    BatchAligner.BROKER_GATHER_S = MESH_GATHER_S
     try:
-        how, wall = _mesh_build(torch, fa, out, n_cards)
+        how, wall, shard_of = _mesh_build(torch, fa, out, n_cards)
         torch.cuda.synchronize()
         kernel_log = launch_log_summary(sv.KERNEL_TIMING)
+        overlap = shard_overlap_ms(sv.KERNEL_TIMING, base, shard_of) if shard_of else None
     finally:
         sv.KERNEL_TIMING = None
+        BatchAligner.BROKER_GATHER_S = gather
     launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
     report = BatchAligner.engine_report()
     with open(out, "rb") as f, open(main_graph, "rb") as g:
         same_graph = f.read() == g.read()
     shards = report["device_shards"]
     cells, main_cells = report["device"]["cells"], main_report["device"]["cells"]
-    say(phase, how=how, cards=n_cards, wall_s=round(wall, 3), roundtrip="exact", graph_equals_main_path=same_graph,
+    say(phase, how=how, cards=n_cards, wall_s=round(wall, 3), broker_gather_s=MESH_GATHER_S, roundtrip="exact",
+        graph_equals_main_path=same_graph,
         launches=json.dumps(launches), device_cells=cells, main_path_device_cells=main_cells,
         device_cells_frac=report["device_cells_frac"])
     say(f"{phase}.shards", **{k.replace(":", "_"): f"{v['launches']}launches/{v['cells']}cells"
                               for k, v in shards.items()})
+    say(f"{phase}.shard_overlap", dp_overlap_ms="not_measured_shards_on_separate_cards" if overlap is None
+        else round(overlap, 3), dp_device_ms=round(kernel_log.get("stripe_dp", {}).get("ms", 0.0), 3))
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log)
+    broker = say_broker(phase, report, launches, kernel_log)
     if not same_graph:
         raise AssertionError(f"{phase}: the mesh build's graph differs from phase 4's")
+    if broker["max_legs"] < 2:
+        raise AssertionError(f"{phase}: no combined round held two merge threads' legs: {broker}")
     for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
                        "sketch": False, "chain": False}.items():
         if must and launches[name] <= 0:

@@ -84,9 +84,10 @@ def _count_launch(name: str) -> None:
 
 # Kernel launch log, off unless a caller sets it to a list: each launch of
 # the DP, the walk or the checkpoint pair then appends (name, B, R,
-# problems, device index, start, end), a CUDA event pair recorded on the
-# launch's stream around the kernel. Nothing here synchronizes; the caller
-# reads the events after its own synchronize.
+# problems, device index, start, end, stream), a CUDA event pair recorded
+# on the launch's stream around the kernel, and that stream's handle
+# (`cuda_stream`). Nothing here synchronizes; the caller reads the events
+# after its own synchronize.
 KERNEL_TIMING = None
 
 
@@ -100,8 +101,9 @@ def _launch_events(device):
 
 def _log_launch(events, name: str, B: int, R: int, m: int, device) -> None:
     if events is not None:
-        events[1].record(torch.cuda.current_stream(device))
-        KERNEL_TIMING.append((name, B, R, m, torch.device(device).index, *events))
+        stream = torch.cuda.current_stream(device)
+        events[1].record(stream)
+        KERNEL_TIMING.append((name, B, R, m, torch.device(device).index, *events, stream.cuda_stream))
 
 
 def walk_segment(R_cap: int, B: int) -> int:
@@ -128,7 +130,11 @@ def _check_problem_vectors(m: int, device, **vecs) -> None:
             raise ValueError(f"{name} must be a contiguous int32 tensor of shape ({m},)")
 
 
-def _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B: int) -> None:
+def _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B: int, values: bool = True) -> None:
+    """Shapes, dtypes, devices and B; with `values`, also the bounds of
+    rlen/qlen, which reads them (on a CUDA tensor that waits for its
+    stream). The batch path checks those on its host arrays instead
+    (`_check_batch`) and passes values=False."""
     if ref.dim() != 2 or qry.dim() != 2 or ref.shape[0] != qry.shape[0]:
         raise ValueError("ref and qry must be [m, R] and [m, Q] tensors with the same m")
     if ref.dtype != torch.uint8 or qry.dtype != torch.uint8:
@@ -141,20 +147,26 @@ def _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B: int) -> None:
         raise ValueError(f"band width B={B} must be a multiple of 128 in [128, {MAX_B}]")
     m = ref.shape[0]
     _check_problem_vectors(m, ref.device, rlen=rlen, qlen=qlen, ms=ms, W=W)
-    if m and (int(rlen.max()) > ref.shape[1] or int(qlen.max()) > qry.shape[1]):
+    if values and m:
+        _check_lengths(int(rlen.max()), int(qlen.max()), int(rlen.min()), int(qlen.min()),
+                       ref.shape[1], qry.shape[1])
+
+
+def _check_lengths(rmax: int, qmax: int, rmin: int, qmin: int, R: int, Q: int) -> None:
+    if rmax > R or qmax > Q:
         raise ValueError("rlen/qlen exceed the width of ref/qry")
-    if m and (int(rlen.min()) < 0 or int(qlen.min()) < 0):
+    if rmin < 0 or qmin < 0:
         raise ValueError("rlen/qlen must be non-negative")
 
 
-def _check_walk_inputs(rec, rlen, qlen, ms, W, seg: int, K: int) -> None:
+def _check_walk_inputs(rec, rlen, qlen, ms, W, seg: int, K: int, values: bool = True) -> None:
     if rec.dim() != 3 or rec.dtype != torch.int16 or not rec.is_contiguous():
         raise ValueError("rec must be a contiguous int16 tensor [m, R, B]")
     if seg < 1 or K < 1:
         raise ValueError("seg and K must be positive")
     m = rec.shape[0]
     _check_problem_vectors(m, rec.device, rlen=rlen, qlen=qlen, ms=ms, W=W)
-    if m and int(rlen.max()) > rec.shape[1]:
+    if values and m and int(rlen.max()) > rec.shape[1]:
         raise ValueError("rlen exceeds the rows of rec")
 
 
@@ -316,6 +328,13 @@ def stripe_dp_cuda(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
     if ref.device.type != "cuda":
         raise ValueError(f"the stripe_dp kernel runs on CUDA tensors, not {ref.device}")
     _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+    return _stripe_dp_launch(ref, qry, rlen, qlen, ms, W, B)
+
+
+def _stripe_dp_launch(ref, qry, rlen, qlen, ms, W, B: int) -> torch.Tensor:
+    """stripe_dp_cuda for inputs whose lengths the caller has checked on the
+    host: it reads no device value, so it does not wait for the stream."""
+    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B, values=False)
     from pangraph_tpu_torch.ops import cuda_build
 
     m, R = ref.shape
@@ -449,6 +468,12 @@ def walk_cuda(rec, rlen, qlen, ms, W, seg: int, K: int):
     if rec.device.type != "cuda":
         raise ValueError(f"the walk kernel runs on CUDA tensors, not {rec.device}")
     _check_walk_inputs(rec, rlen, qlen, ms, W, seg, K)
+    return _walk_launch(rec, rlen, qlen, ms, W, seg, K)
+
+
+def _walk_launch(rec, rlen, qlen, ms, W, seg: int, K: int):
+    """walk_cuda without the read of rlen (see _stripe_dp_launch)."""
+    _check_walk_inputs(rec, rlen, qlen, ms, W, seg, K, values=False)
     from pangraph_tpu_torch.ops import cuda_build
 
     m, R, B = rec.shape
@@ -588,6 +613,12 @@ def stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) 
     if ref.device.type != "cuda":
         raise ValueError(f"the stripe_dp_ckpt kernel runs on CUDA tensors, not {ref.device}")
     _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+    return _stripe_dp_ckpt_launch(ref, qry, rlen, qlen, ms, W, B, R_cap)
+
+
+def _stripe_dp_ckpt_launch(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) -> torch.Tensor:
+    """stripe_dp_ckpt_cuda without the reads of rlen/qlen (see _stripe_dp_launch)."""
+    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B, values=False)
     from pangraph_tpu_torch.ops import cuda_build
 
     m = ref.shape[0]
@@ -610,16 +641,16 @@ def stripe_dp_ckpt_cuda(ref, qry, rlen, qlen, ms, W, B: int, R_cap: int = None) 
     return ckpt
 
 
-def _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K: int) -> None:
+def _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K: int, values: bool = True) -> None:
     if ckpt.dim() != 4 or ckpt.dtype != torch.int32 or not ckpt.is_contiguous():
         raise ValueError("ckpt must be a contiguous int32 tensor [m, n_windows, 3, B]")
     m, n_windows, _, B = ckpt.shape
-    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B)
+    _check_dp_inputs(ref, qry, rlen, qlen, ms, W, B, values)
     if m != ref.shape[0] or ckpt.shape[2] != 3 or ckpt.device != ref.device:
         raise ValueError(f"ckpt must be [{ref.shape[0]}, n_windows, 3, {B}] on {ref.device}")
     if K < 1:
         raise ValueError("K must be positive")
-    if m and int(rlen.max()) > n_windows * ckpt_layout(B):
+    if values and m and int(rlen.max()) > n_windows * ckpt_layout(B):
         raise ValueError("rlen exceeds the rows the checkpoint windows cover")
 
 
@@ -707,6 +738,12 @@ def walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
     if ref.device.type != "cuda":
         raise ValueError(f"the walk_ckpt kernel runs on CUDA tensors, not {ref.device}")
     _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K)
+    return _walk_ckpt_launch(ckpt, ref, qry, rlen, qlen, ms, W, K)
+
+
+def _walk_ckpt_launch(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
+    """walk_ckpt_cuda without the reads of rlen/qlen (see _stripe_dp_launch)."""
+    _check_walk_ckpt_inputs(ckpt, ref, qry, rlen, qlen, ms, W, K, values=False)
     from pangraph_tpu_torch.ops import cuda_build
 
     m, n_windows, _, B = ckpt.shape
@@ -753,20 +790,59 @@ def walk_ckpt_cuda(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
 # --------------------------------------------------------------- pipeline
 
 
+def _check_batch(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, rows: int) -> None:
+    """The checks of the wrappers, made on a batch's host arrays before the
+    upload: every vector an int32 [m], the sequences uint8 [m, R] and
+    [m, Q], B a kernel band, K positive, rlen/qlen within R/Q and
+    non-negative, and rlen within `rows` (the rows the records or the
+    checkpoint windows cover)."""
+    if ref_seq.ndim != 2 or qry_seq.ndim != 2 or ref_seq.shape[0] != qry_seq.shape[0]:
+        raise ValueError("ref and qry must be [m, R] and [m, Q] arrays with the same m")
+    if ref_seq.dtype != np.uint8 or qry_seq.dtype != np.uint8:
+        raise ValueError("ref and qry must be uint8 sequence bytes")
+    m = ref_seq.shape[0]
+    for name, v in (("rlen", rlen), ("qlen", qlen), ("ms", ms), ("W", W)):
+        if v.dtype != np.int32 or v.shape != (m,):
+            raise ValueError(f"{name} must be an int32 array of shape ({m},)")
+    if B % 128 or not 128 <= B <= MAX_B:
+        raise ValueError(f"band width B={B} must be a multiple of 128 in [128, {MAX_B}]")
+    if K < 1:
+        raise ValueError("K must be positive")
+    if m:
+        _check_lengths(int(rlen.max()), int(qlen.max()), int(rlen.min()), int(qlen.min()),
+                       ref_seq.shape[1], qry_seq.shape[1])
+        if int(rlen.max()) > rows:
+            raise ValueError(f"rlen exceeds the {rows} rows the records cover")
+
+
 def _put(device, *arrays) -> list:
-    """Host numpy arrays -> contiguous tensors on `device`."""
+    """Host numpy arrays -> contiguous tensors on `device`. To a CUDA device
+    through pinned staging, copied on the current stream without waiting
+    for it (PyTorch's caching host allocator keeps a staging buffer until
+    its copy has run)."""
     dev = torch.device(device)
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if dev.type != "cuda":
+        return [t.to(dev) for t in tensors]
+    return [t.pin_memory().to(dev, non_blocking=True) for t in tensors]
 
 
 def stripe_align(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, seg: int, device) -> dict:
     """DP then walk for one batch on `device`. Inputs are host numpy arrays
     (ref_seq [m, R] and qry_seq [m, Q] uint8 bytes, the rest [m] int32); the
     result dict holds rows/words [m, K], n_events [m] and meta [m, 4] as
-    tensors on `device` (not yet synchronized)."""
+    tensors on `device` (not yet synchronized). The inputs are checked on
+    the host, so on a CUDA device nothing here waits for the stream."""
+    _check_batch(ref_seq, qry_seq, rlen, qlen, ms, W, B, K, ref_seq.shape[1])
+    if seg < 1:
+        raise ValueError("seg must be positive")
     ref, qry, rl, ql, msv, Wv = _put(device, ref_seq, qry_seq, rlen, qlen, ms, W)
-    rec = stripe_dp(ref, qry, rl, ql, msv, Wv, B)
-    rows, words, nev, meta = walk(rec, rl, ql, msv, Wv, seg, K)
+    if ref.device.type == "cuda":
+        rec = _stripe_dp_launch(ref, qry, rl, ql, msv, Wv, B)
+        rows, words, nev, meta = _walk_launch(rec, rl, ql, msv, Wv, seg, K)
+    else:
+        rec = stripe_dp(ref, qry, rl, ql, msv, Wv, B)
+        rows, words, nev, meta = walk(rec, rl, ql, msv, Wv, seg, K)
     return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
 
 
@@ -774,9 +850,16 @@ def stripe_align_ckpt(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, R_cap
     """The checkpoint route of `stripe_align`: stripe_dp_ckpt then walk_ckpt,
     with the same inputs and output dict. R_cap is the length tier (it sets
     the number of windows, as in the reference)."""
+    if R_cap < ref_seq.shape[1]:
+        raise ValueError(f"R_cap={R_cap} is below the rows of ref ({ref_seq.shape[1]})")
+    _check_batch(ref_seq, qry_seq, rlen, qlen, ms, W, B, K, ckpt_windows(R_cap, B) * ckpt_layout(B))
     ref, qry, rl, ql, msv, Wv = _put(device, ref_seq, qry_seq, rlen, qlen, ms, W)
-    ckpt = stripe_dp_ckpt(ref, qry, rl, ql, msv, Wv, B, R_cap)
-    rows, words, nev, meta = walk_ckpt(ckpt, ref, qry, rl, ql, msv, Wv, K)
+    if ref.device.type == "cuda":
+        ckpt = _stripe_dp_ckpt_launch(ref, qry, rl, ql, msv, Wv, B, R_cap)
+        rows, words, nev, meta = _walk_ckpt_launch(ckpt, ref, qry, rl, ql, msv, Wv, K)
+    else:
+        ckpt = stripe_dp_ckpt(ref, qry, rl, ql, msv, Wv, B, R_cap)
+        rows, words, nev, meta = walk_ckpt(ckpt, ref, qry, rl, ql, msv, Wv, K)
     return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
 
 

@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def uninterrupted(tmp_path_factory):
     """The records (read back from their FASTA, as the CLI reads them), the
     FASTA, and per jobs in (1, 2) the uninterrupted port graph, equal to the
-    reference's with like routing (the host engine)."""
+    reference's with like routing (the host engine) and to each other."""
     fa = tmp_path_factory.mktemp("input") / "in.fa"
     write_fasta(str(fa), make_accessory_pangenome(4, 20_000, seed=5))
     recs = read_fasta(str(fa))
@@ -44,6 +44,7 @@ def uninterrupted(tmp_path_factory):
         g_port = graph_json(port_build(port_records(recs), pargs, aligner=port_aligner(pargs, None)))
         assert g_port == g_ref
         graphs[jobs] = g_port
+    assert graphs[1] == graphs[2]
     return port_records(recs), fa, graphs
 
 

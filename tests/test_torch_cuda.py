@@ -255,6 +255,35 @@ def test_align_many_on_the_card_matches_the_cpu(ckpt_bytes):
         assert np.array_equal(a.apply(j.ref), j.qry)
 
 
+@pytest.mark.parametrize("ckpt", [False, True], ids=["stripe", "ckpt"])
+def test_batch_launches_do_not_wait_for_the_stream(ckpt):
+    """stripe_align and stripe_align_ckpt (the batch path) upload and launch
+    without a synchronizing call: under torch's sync debug mode "error" they
+    queue everything, and their outputs equal the plain versions'."""
+    need_cuda()
+    rng = np.random.default_rng(23)
+    B, K, R_cap = 128, 256, 4096
+    arrays = [a.numpy() for a in batch(pairs(rng, 12, 300, 2500), B)]
+    if ckpt:
+        run = lambda dev: sv.stripe_align_ckpt(*arrays, B, K, R_cap, dev)  # noqa: E731
+    else:
+        run = lambda dev: sv.stripe_align(*arrays, B, K, sv.walk_segment(R_cap, B), dev)  # noqa: E731
+    run("cuda")  # warm up: the kernels' libraries and the IUPAC table on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run("cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = run("cpu")
+    got = {k: v.cpu() for k, v in out.items()}
+    assert torch.equal(got["n_events"], want["n_events"]) and torch.equal(got["meta"], want["meta"])
+    for s in range(len(arrays[2])):
+        n = min(int(want["n_events"][s]), K)
+        assert torch.equal(got["rows"][s, :n], want["rows"][s, :n])
+        assert torch.equal(got["words"][s, :n], want["words"][s, :n])
+
+
 def _codes(rng, m, L_pad, lengths):
     """An int32 code batch: TWOBIT codes of random rows with N at 4%
     (code 4), padded with 4."""

@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -120,6 +121,36 @@ def test_wrappers_reject_bad_inputs(bad):
         rlen = torch.tensor([9, 8], dtype=torch.int32)
     with pytest.raises(ValueError):
         sv.stripe_dp(ref, qry, rlen, qlen, ms, W, B)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "band", "bounds", "negative", "K", "R_cap"])
+def test_batch_entries_check_host_arrays(bad):
+    """stripe_align and stripe_align_ckpt check their host arrays before the
+    upload (their CUDA launches skip the wrappers' reads of device values),
+    and refuse what the wrappers refuse."""
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+
+    ref, qry, rlen, qlen, ms, W = (t.numpy() for t in _problem())
+    B, K, R_cap = 128, 64, 4096
+    if bad == "dtype":
+        rlen = rlen.astype(np.int64)
+    elif bad == "shape":
+        qry = qry[:1]
+    elif bad == "band":
+        B = 200
+    elif bad == "bounds":
+        rlen = np.array([9, 8], np.int32)
+    elif bad == "negative":
+        qlen = np.array([8, -1], np.int32)
+    elif bad == "K":
+        K = 0
+    else:
+        R_cap = 4
+    with pytest.raises(ValueError):
+        sv.stripe_align_ckpt(ref, qry, rlen, qlen, ms, W, B, K, R_cap, "cpu")
+    if bad != "R_cap":
+        with pytest.raises(ValueError):
+            sv.stripe_align(ref, qry, rlen, qlen, ms, W, B, K, 1024, "cpu")
 
 
 def test_native_build_lands_outside_the_package():
