@@ -110,7 +110,15 @@ Phases, one line each (any failure exits non-zero and prints no result):
    over two shards of card 0) on the reference's worker workload (6 x 900
    bp): both graphs equal to a solo build's on the card, the group's sum
    equal to the cluster's 4 shards, 1-5 merges claimed, the DP and walk
-   launched in the workers.
+   launched in the workers;
+10. the bench: `python -m pangraph_tpu_torch.bench --workload
+   synthetic_12x120kb_mutation_only --workload device_kernel_probe
+   --repeats 1` in a process of its own (BENCH_ARGV), which resets the
+   launch counts before its measured build and reports them after: it must
+   exit 0 with one JSON line whose synthetic build has an exact roundtrip,
+   at least half of its DP cells on the device, the DP and walk launched
+   with their launch-log device ms, whose kernel probe reports positive
+   rates, and whose device is this card.
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
 walk's, the chain's and the sketch's: theirs are kernel-only, from
@@ -1743,6 +1751,56 @@ def phase_cluster(torch, work: str) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
+# phase 10: the bench's short run on the card, and its time limit
+BENCH_WORKLOAD = "chromosome_scale_4x2.5Mbp_mutation_only"
+BENCH_ARGV = ["--workload", BENCH_WORKLOAD, "--workload", "device_kernel_probe", "--repeats", "1"]
+BENCH_TIMEOUT_S = 300
+
+
+def phase_bench(torch) -> dict:
+    """Phase 10: the bench through its entry point (BENCH_ARGV), in a
+    process of its own that builds the synthetic workload on the card once
+    after a warm-up and runs the kernel probe. Its one JSON line must show
+    an exact roundtrip, at least half of the DP cells on the device, the DP
+    and walk launched and timed on the launch log, positive probe rates,
+    and this card as the device. Returns the build's launches."""
+    phase = "bench"
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "pangraph_tpu_torch.bench", *BENCH_ARGV],
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.time() - t0
+    if out.returncode != 0:
+        sys.stderr.write(out.stderr[-4000:])
+        raise AssertionError(f"{phase}: the bench exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"{phase}: the bench printed {len(lines)} lines, not one JSON line")
+    line = json.loads(lines[0])
+    rep, probe = line["detail"][BENCH_WORKLOAD], line["detail"]["device_kernel_probe"]
+    align = rep["align"]
+    say(phase, seconds=round(wall, 3), workload=BENCH_WORKLOAD, wall_s=rep["wall_s"], bp_per_s=rep["bp_per_s"],
+        roundtrip=rep["roundtrip"], device_cells_frac=align["engines"]["device_cells_frac"],
+        launches=json.dumps(align["launches"]), kernel_ms=json.dumps(align["kernel_ms"]),
+        peak_device_bytes=rep["peak_device_bytes"], sha256=rep["graph_sha256"][:16],
+        probe_gcells_per_s=probe["on_device_gcells_per_s"],
+        probe_1call_gcells_per_s=probe["effective_1call_gcells_per_s"], probe_dp_bound_share=probe["dp_bound_share"], device=json.dumps(line["device"]))
+    if rep["roundtrip"] != "exact":
+        raise AssertionError(f"{phase}: roundtrip {rep['roundtrip']!r}")
+    if (align["engines"]["device_cells_frac"] or 0) < 0.5:
+        raise AssertionError(f"{phase}: device_cells_frac {align['engines']['device_cells_frac']} < 0.5")
+    for name in ("stripe_dp", "walk"):
+        if align["launches"][name] <= 0 or name not in align["kernel_ms"]:
+            raise AssertionError(f"{phase}: {name} was not launched and timed: {align['launches']}, "
+                                 f"{align['kernel_ms']}")
+    if not (probe["on_device_gcells_per_s"] > 0 and probe["effective_1call_gcells_per_s"] > 0):
+        raise AssertionError(f"{phase}: the kernel probe's rates are not positive: {probe}")
+    if line["device"]["platform"] != "gpu" or line["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"{phase}: the bench ran on {line['device']}, not this card")
+    return {"launches": align["launches"], "wall_s": wall}
+
+
 KERNEL_FILES = {
     "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
     "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
@@ -1766,10 +1824,11 @@ def _timed_by(name: str) -> str:
 
 
 def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
-             cli_path: dict, mesh_path: dict) -> dict:
+             cli_path: dict, mesh_path: dict, bench: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
-    the headline's default path, and on phase 7's merge as
-    `merge_launches`; the checkpoint pair on the long-tier path, the sketch
+    the headline's default path, on phase 7's merge as `merge_launches`
+    and on phase 10's bench build as `bench_launches`; the checkpoint pair
+    on the long-tier path, the sketch
     and chain on phase 6; the four alignment kernels on phase 8's mesh as
     `mesh_launches`), worst error against its plain version
     over every shape it was held at, and its times and bound at one shape
@@ -1801,6 +1860,7 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
         if path is main_path:
             rows[-1]["merge_launches"] = cli_path["launches"][name]
+            rows[-1]["bench_launches"] = bench["launches"][name]
             rows[-1]["mesh_launches"] = mesh_path["launches"][name]
         else:
             rows[-1]["mesh_launches"] = mesh_path["ckpt_launches"][name]
@@ -1861,6 +1921,7 @@ def main() -> int:
             cli_path = phase_cli_path(torch, fa, graph, tmp, main_path["quality"])
             mesh_path = phase_mesh_path(torch, fa, graph, main_path["report"], tmp)
             phase_cluster(torch, tmp)
+        bench = phase_bench(torch)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
@@ -1868,7 +1929,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
