@@ -42,8 +42,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    with an exact roundtrip, the DP and walk launched, the checkpoint pair
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
-   (1156 blocks, core fraction 0.4875, 7,028,975 bp) and must stay within
-   QUALITY_TOLERANCE of them; the kernels' launch log
+   (1156 blocks, core fraction 0.4875, 7,028,975 bp: the bench's
+   HEADLINE_QUALITY) and must stay within the bench's QUALITY_TOLERANCE
+   of them; the kernels' launch log
    (stripe_v2.KERNEL_TIMING) gives each DP and walk kernel's launches and
    summed device ms, per band width B, and a histogram of problems per
    launch for each B; the build runs under torch.profiler (CUDA activity
@@ -81,10 +82,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    at least half the DP cells on the device, all ten genomes reconstructed
    exactly; then the same merge with the reference's host-leg budget
    (BatchAligner.NATIVE_CELL_BUDGET = 100,000,000 cells, what
-   PANGRAPH_TPU_NATIVE_BUDGET=100000000 sets), with the same checks and
-   some cells on the host, both walls, device shares and host cells
-   printed; the merged graph's quality beside phase 4's (no bound), its
-   launch-log lines, and its MSU and backbone-junction counts through the
+   PANGRAPH_TPU_NATIVE_BUDGET=100000000 sets), which the adaptive split
+   routes (check_gate_log: every round's split is the reference's rule
+   recomputed from the state logged before it), with the other checks,
+   some cells on the host and some on the device, both walls, device
+   shares and host cells printed; the merged graph's quality beside phase
+   4's (no bound), its launch-log lines, and its MSU and backbone-junction counts through the
    pypangraph facade (through the analysis layer's pandas-free parts where
    pandas is absent);
 8. the mesh path: the headline build again with its alignment launches
@@ -118,7 +121,20 @@ Phases, one line each (any failure exits non-zero and prints no result):
    exit 0 with one JSON line whose synthetic build has an exact roundtrip,
    at least half of its DP cells on the device, the DP and walk launched
    with their launch-log device ms, whose kernel probe reports positive
-   rates, and whose device is this card.
+   rates, and whose device is this card;
+11. the gated path: the headline built in this process (build() with
+   BuildArgs(circular=True, jobs=2), a BatchAligner on card 0) at
+   NATIVE_CELL_BUDGET = 100,000,000 cells, the reference's default, so that
+   the adaptive host/device split routes every round; the launch counts
+   set to 0 just before it: an exact roundtrip, quality within the
+   bench's QUALITY_TOLERANCE, the DP and walk launched with launch-log device ms,
+   the checkpoint pair, sketch and chain not, some cells on the device (no
+   bound on the share: the gate decides it), and every logged round's
+   split equal to the reference's rule recomputed from the state logged
+   before it (check_gate_log); the engines' rates, the overhead and the
+   measured round trip, the rounds by kind, the wall and the device share
+   on `phase11.*` lines. It runs after phase 10; a `[total]` line then
+   gives the run's wall.
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
 walk's, the chain's and the sketch's: theirs are kernel-only, from
@@ -132,7 +148,8 @@ and the kernel's receipt says "timed_by": "profiler, events in some phase".
 
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, the DP's and walk's also on phase
-7's merge, the four alignment kernels' on phase 8's mesh, its worst error
+7's merge, phase 10's bench build and phase 11's gated build, the four
+alignment kernels' on phase 8's mesh, its worst error
 against its plain version, its
 time and its plain version's, and its bound) and the card's name and power
 limit; the last line is
@@ -152,12 +169,6 @@ import numpy as np
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 IUPAC_EXTRA = np.frombuffer(b"NRYSWKMBDHVN", np.uint8)
-REFERENCE_QUALITY = {"n_blocks": 1156, "core_fraction": 0.4875, "pangenome_bp": 7028975}
-# The kernel route bands B lanes where the host engine bands 2W+2, so its
-# edits differ at band edges and the graph may differ slightly; it must stay
-# this close to the reference's figures (relative for blocks and bp,
-# absolute for the core fraction).
-QUALITY_TOLERANCE = {"n_blocks": 0.01, "core_fraction": 0.01, "pangenome_bp": 0.001}
 # (B, R, problems); B 256 and 384 sit on each side of the DP's switch from
 # one warp a problem to one block a problem (DP_WARP_MAX_B)
 KERNEL_SHAPES = [(128, 4096, 256), (128, 10240, 256), (256, 4096, 128), (256, 10240, 128),
@@ -895,7 +906,7 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             else:
                 os.environ[k] = v
     say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
-    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in REFERENCE_QUALITY.items()})
+    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in reference_quality().items()})
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log, device)
     say_broker(phase, report, launches, kernel_log)
@@ -913,12 +924,27 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             raise AssertionError(f"{phase}: kernel {name} was launched off its path: {launches}")
     if (report["device_cells_frac"] or 0) < 0.5:
         raise AssertionError(f"{phase}: device_cells_frac {report['device_cells_frac']} < 0.5")
-    for k, want_q in REFERENCE_QUALITY.items():
-        off = abs(quality[k] - want_q) / (1 if k == "core_fraction" else want_q)
-        if off > QUALITY_TOLERANCE[k]:
-            raise AssertionError(f"{phase}: graph quality {k}={quality[k]} is off the reference's {want_q} by {off:.4g}")
+    check_quality(phase, quality)
     return {"launches": launches, "report": report, "quality": quality, "wall_s": wall, "kernels": kernel_log,
             "device": device}
+
+
+def reference_quality() -> dict:
+    """The reference's figures for the headline (the bench's
+    HEADLINE_QUALITY)."""
+    from pangraph_tpu_torch.bench import HEADLINE_QUALITY
+
+    return HEADLINE_QUALITY
+
+
+def check_quality(phase: str, quality: dict) -> None:
+    """The graph's quality within the bench's QUALITY_TOLERANCE of the
+    reference's (bench.quality_off)."""
+    from pangraph_tpu_torch import bench
+
+    off = bench.quality_off(quality, bench.HEADLINE_QUALITY)
+    if off:
+        raise AssertionError(f"{phase}: graph quality (got, reference) {off} lies beyond {bench.QUALITY_TOLERANCE}")
 
 
 def say_broker(phase: str, report: dict, launches: dict, kernel_log: dict) -> dict:
@@ -1363,8 +1389,11 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     the DP and walk launched, the checkpoint pair, sketch and chain not, at
     least half the DP cells on the device, all ten genomes reconstructed
     exactly (_merge_run). The same merge again with the reference's host-leg
-    budget (MERGE_HOST_LEG_BUDGET cells): the same checks, and some cells on
-    the host. The first merged graph goes through the pypangraph facade."""
+    budget (MERGE_HOST_LEG_BUDGET cells), which the adaptive split routes:
+    the same checks, except that in place of the device share every
+    logged round's split must be the gate's rule (check_gate_log), with
+    some cells on the device and some on the host. The first merged graph
+    goes through the pypangraph facade."""
     from pangraph_tpu_torch.commands import graph_quality
     from pangraph_tpu_torch.graph.graph import Pangraph
     from pangraph_tpu_torch.io.fasta import read_fasta
@@ -1443,7 +1472,7 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     if sorted(p.name for p in mg.paths.values()) != sorted(names):
         raise AssertionError(f"{phase}: the merged graph holds {len(mg.paths)} of {len(names)} genomes")
     quality = graph_quality(mg)
-    say(f"{phase}.merge_quality", **{k: f"{quality[k]}(build {main_quality[k]})" for k in REFERENCE_QUALITY},
+    say(f"{phase}.merge_quality", **{k: f"{quality[k]}(build {main_quality[k]})" for k in reference_quality()},
         n_core_blocks=quality["n_core_blocks"], note="no_bound_a_merge_of_two_halves_is_not_a_build")
 
     t0 = time.time()
@@ -1476,8 +1505,10 @@ def _merge_run(torch, phase: str, label: str, halves: list, out: str, budget, n_
     launch counts set to 0 just before it, and BatchAligner.NATIVE_CELL_BUDGET
     set to `budget` around it where one is given (what
     PANGRAPH_TPU_NATIVE_BUDGET sets when the class is defined): the DP and
-    walk launched, the checkpoint pair, sketch and chain not, at least half
-    the DP cells on the device."""
+    walk launched, the checkpoint pair, sketch and chain not; at budget 0
+    at least half the DP cells on the device; under a budget, which the
+    adaptive split routes, every logged round's split the gate's rule
+    (check_gate_log) and some cells on the device."""
     from pangraph_tpu_torch.ops import chain_k2 as ch
     from pangraph_tpu_torch.ops import sketch_k1 as sk
     from pangraph_tpu_torch.ops import stripe_v2 as sv
@@ -1509,8 +1540,13 @@ def _merge_run(torch, phase: str, label: str, halves: list, out: str, budget, n_
             raise AssertionError(f"{phase}: {label} never launched {name}: {launches}")
         if not must and launches[name] != 0:
             raise AssertionError(f"{phase}: {label} launched {name} off its path: {launches}")
-    if (report["device_cells_frac"] or 0) < 0.5:
+    if budget is None and (report["device_cells_frac"] or 0) < 0.5:
         raise AssertionError(f"{phase}: {label} device_cells_frac {report['device_cells_frac']} < 0.5")
+    if budget is not None:
+        kinds = check_gate_log(f"{phase}.{label}", BatchAligner.GATE_LOG, gate_settings(BatchAligner))
+        say_gate(f"{phase}.{label}_gate", report, kinds)
+        if report["device"]["cells"] <= 0:
+            raise AssertionError(f"{phase}: {label} ran no cells on the device: {report['device']}")
     return {"launches": launches, "report": report, "kernels": kernel_log, "wall_s": wall}
 
 
@@ -1801,6 +1837,156 @@ def phase_bench(torch) -> dict:
     return {"launches": align["launches"], "wall_s": wall}
 
 
+# The adaptive split's settings that its rule reads (BatchAligner's)
+GATE_SETTINGS = ("RATE_MIN_CELLS", "DEV_PROBE_CELLS", "DEVICE_MIN_ADVANTAGE", "MIXED_GUARANTEE", "HOST_ALL")
+
+
+def gate_settings(cls) -> dict:
+    return {k: getattr(cls, k) for k in GATE_SETTINGS}
+
+
+def gate_rule(e: dict, c: dict) -> tuple:
+    """The reference's adaptive split (pangraph_tpu/ops/batch_align.py:
+    654-714), written again from its source and apart from the port's: from
+    a GATE_LOG entry's state before its round (C, h, d, L, budget, starved,
+    period, inflight) and the settings `c`, what the gate does: (gate, the
+    host leg's budget, starved after, period after)."""
+    C, h, d, L, budget, starved, period = (e[k] for k in ("C", "h", "d", "L", "budget", "starved", "period"))
+    rmc, every = c["RATE_MIN_CELLS"], c["HOST_ALL"]
+    if d is None:
+        if e["inflight"]:
+            return "probe-wait", every, starved, period
+        return "probe", max(budget, C - c["DEV_PROBE_CELLS"]), starved, period
+    if not h:
+        return "fixed", budget, starved, period
+    host_only_wall = C / h
+    mixed_wall = (L * d + C) / (d + h)
+    if d >= c["DEVICE_MIN_ADVANTAGE"] * h and mixed_wall < host_only_wall * c["MIXED_GUARANTEE"]:
+        cap = max(budget, int(h * (L * d + C) / (d + h)))
+        if C >= 2 * rmc and C - cap < rmc:
+            starved += 1
+            if starved >= 8:
+                cap, starved = min(cap, C - rmc), 0
+        return "open", cap, starved, 8
+    starved += 1
+    if starved >= period and C >= 2 * rmc:
+        return "slice", C - rmc, 0, min(period * 2, 64)
+    return "closed", every, starved, period
+
+
+def check_gate_log(phase: str, log: list, c: dict) -> dict:
+    """Every gated round of `log` (BatchAligner.GATE_LOG) against the gate's
+    rule (gate_rule) recomputed from the state logged before it: the same
+    decision, budget and counters; the host's smallest jobs fill the budget
+    (fill <= cap < fill + next); the host cells are that fill plus the wide
+    bands, or the whole round where a probe leg was in flight; the device
+    cells the rest; per aligner, each round's probe period the previous
+    round's, and its starved count the previous one's or 0 (a device-rate
+    observation resets it). Returns the rounds by kind."""
+    if not log:
+        raise AssertionError(f"{phase}: no gated round was logged")
+    last = {}
+    kinds = {}
+    for n, e in enumerate(log):
+        want = gate_rule(e, c)
+        got = (e["gate"], e["cap"], e["starved_after"], e["period_after"])
+        if got != want:
+            raise AssertionError(f"{phase}: round {n} did {got}, the rule gives {want}: {e}")
+        if not (e["fill"] <= e["cap"] and (e["next"] is None or e["fill"] + e["next"] > e["cap"])):
+            raise AssertionError(f"{phase}: round {n}'s host jobs do not fill its budget: {e}")
+        whole = e["gate"] == "probe-wait" or e.get("race_lost")
+        host = e["C"] if whole else e["fill"] + e["wide"]
+        if e["host"] != host or e["dev"] != e["C"] - host:
+            raise AssertionError(f"{phase}: round {n}'s split is {e['host']} / {e['dev']}, not {host} / "
+                                 f"{e['C'] - host}: {e}")
+        prev = last.get(e["aligner"])
+        if prev is not None and (e["period"] != prev["period_after"]
+                                 or e["starved"] not in (prev["starved_after"], 0)):
+            raise AssertionError(f"{phase}: round {n}'s counters do not follow round {prev['n']}'s: {e}")
+        last[e["aligner"]] = {**e, "n": n}
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    return kinds
+
+
+def say_gate(phase: str, report: dict, kinds: dict) -> None:
+    """A gate line: the rates (Gcells/s), the overhead and round trip (ms)
+    and the gated rounds by kind."""
+    g = report["gate"]
+    gcells = {k: None if g[k] is None else round(g[k] / 1e9, 4) for k in ("host_rate", "dev_rate")}
+    say(phase, h_gcells_per_s=gcells["host_rate"], d_gcells_per_s=gcells["dev_rate"],
+        d_over_h=None if None in gcells.values() else round(g["dev_rate"] / g["host_rate"], 4),
+        L_ms=None if g["dev_latency_s"] is None else round(g["dev_latency_s"] * 1e3, 4),
+        L_floor_ms=round(g["dev_latency_floor_s"] * 1e3, 4),
+        rtt_ms=None if g["measured_rtt_s"] is None else round(g["measured_rtt_s"] * 1e3, 4),
+        rounds=json.dumps(kinds), device_cells_frac=report["device_cells_frac"])
+
+
+# phase 11's host-leg budget: the reference's default NATIVE_CELL_BUDGET
+GATED_BUDGET = 100_000_000
+
+
+def phase_gated_path(torch, fa: str) -> dict:
+    """Phase 11: the headline (`fa`) built in this process at
+    NATIVE_CELL_BUDGET = GATED_BUDGET, the reference's default, so that the
+    adaptive split routes every round: build() with BuildArgs(circular=True,
+    jobs=2) and a new BatchAligner on card 0, the launch counts set to 0 just
+    before it. An exact roundtrip, quality within the bench's
+    QUALITY_TOLERANCE, the DP and walk launched with launch-log ms, the
+    checkpoint pair, sketch and chain not, some cells on the device, and
+    every logged round consistent with the gate's rule (check_gate_log)."""
+    from pangraph_tpu_torch.align.params import BuildArgs
+    from pangraph_tpu_torch.build.build import build, verify_roundtrip
+    from pangraph_tpu_torch.commands import graph_quality
+    from pangraph_tpu_torch.io.fasta import read_fasta
+    from pangraph_tpu_torch.ops import chain_k2 as ch
+    from pangraph_tpu_torch.ops import sketch_k1 as sk
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+
+    phase = "phase11"
+    records = read_fasta(fa)
+    args = BuildArgs(circular=True, jobs=2)
+    aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device="cuda")
+    saved = BatchAligner.NATIVE_CELL_BUDGET
+    BatchAligner.reset_engine_stats()
+    for mod in (sv, sk, ch):
+        mod.reset_launches()
+    sv.KERNEL_TIMING = []
+    try:
+        BatchAligner.NATIVE_CELL_BUDGET = GATED_BUDGET
+        t0 = time.time()
+        graph = build(records, args, aligner=aligner)
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+        kernel_log = launch_log_summary(sv.KERNEL_TIMING)
+    finally:
+        sv.KERNEL_TIMING = None
+        BatchAligner.NATIVE_CELL_BUDGET = saved
+    launches = {**sv.LAUNCHES, **sk.LAUNCHES, **ch.LAUNCHES}
+    report = BatchAligner.engine_report()
+    log = list(BatchAligner.GATE_LOG)
+    verify_roundtrip(graph, records)
+    quality = graph_quality(graph)
+    say(phase, native_cell_budget=GATED_BUDGET, wall_s=round(wall, 3), roundtrip="exact",
+        device_cells_frac=report["device_cells_frac"], host_cells=report["host"]["cells"],
+        device_cells=report["device"]["cells"], gated_rounds=len(log), launches=json.dumps(launches))
+    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in reference_quality().items()})
+    say(f"{phase}.engines", report=json.dumps(report))
+    say_launch_log(phase, kernel_log)
+    kinds = check_gate_log(phase, log, gate_settings(BatchAligner))
+    say_gate(f"{phase}.gate", report, kinds)
+    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                       "sketch": False, "chain": False}.items():
+        if must and (launches[name] <= 0 or name not in kernel_log):
+            raise AssertionError(f"{phase}: kernel {name} was not launched and timed: {launches}")
+        if not must and launches[name] != 0:
+            raise AssertionError(f"{phase}: kernel {name} was launched off its path: {launches}")
+    if report["device"]["cells"] <= 0:
+        raise AssertionError(f"{phase}: no cells ran on the device: {report['device']}")
+    check_quality(phase, quality)
+    return {"launches": launches, "report": report, "wall_s": wall, "kinds": kinds}
+
+
 KERNEL_FILES = {
     "stripe_dp": ("pangraph_tpu_torch/csrc/stripe_dp.cu", "pangraph_tpu/ops/stripe_v2.py:201"),
     "walk": ("pangraph_tpu_torch/csrc/walk.cu", "pangraph_tpu/ops/stripe_v2.py:452"),
@@ -1824,10 +2010,11 @@ def _timed_by(name: str) -> str:
 
 
 def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
-             cli_path: dict, mesh_path: dict, bench: dict) -> dict:
+             cli_path: dict, mesh_path: dict, bench: dict, gated: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
-    the headline's default path, on phase 7's merge as `merge_launches`
-    and on phase 10's bench build as `bench_launches`; the checkpoint pair
+    the headline's default path, on phase 7's merge as `merge_launches`,
+    on phase 10's bench build as `bench_launches` and on phase 11's gated
+    build as `gated_launches`; the checkpoint pair
     on the long-tier path, the sketch
     and chain on phase 6; the four alignment kernels on phase 8's mesh as
     `mesh_launches`), worst error against its plain version
@@ -1861,6 +2048,7 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         if path is main_path:
             rows[-1]["merge_launches"] = cli_path["launches"][name]
             rows[-1]["bench_launches"] = bench["launches"][name]
+            rows[-1]["gated_launches"] = gated["launches"][name]
             rows[-1]["mesh_launches"] = mesh_path["launches"][name]
         else:
             rows[-1]["mesh_launches"] = mesh_path["ckpt_launches"][name]
@@ -1886,6 +2074,7 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
 
 
 def main() -> int:
+    t_start = time.time()
     try:
         import torch
     except ImportError:
@@ -1921,15 +2110,17 @@ def main() -> int:
             cli_path = phase_cli_path(torch, fa, graph, tmp, main_path["quality"])
             mesh_path = phase_mesh_path(torch, fa, graph, main_path["report"], tmp)
             phase_cluster(torch, tmp)
-        bench = phase_bench(torch)
+            bench = phase_bench(torch)
+            gated = phase_gated_path(torch, fa)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    say("total", wall_s=round(time.time() - t_start, 3))
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench, gated)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -10,7 +10,8 @@ its one JSON line on stdout (progress goes to stderr): `metric`, `value`,
 workload, plus `workload` (the one the top-level numbers come from: the
 headline where it ran, else the first build workload that did), `device`
 (platform, name, count and power limit of the device that produced every
-number) and `native_budget` (BatchAligner.NATIVE_CELL_BUDGET for the run).
+number), `native_budget` (BatchAligner.NATIVE_CELL_BUDGET for the run) and
+`gate` (the top workload's adaptive-split receipts, engine_report()["gate"]).
 
 Workloads (WORKLOADS, then the kernel probe), all run where no --workload is
 given, after one warm-up build of the 12 x 120 kb synthetic (which also
@@ -31,12 +32,21 @@ builds the CUDA kernels and the host engine):
   probe's shape (null off the card).
 
 Every build workload reports its best wall, the graph quality and an exact
-roundtrip (checked once after the repeats), each repeat's wall, max RSS and
-(on the card) peak device bytes, the sha256 of the graph JSON (the repeats
-must agree, or the run fails), and from its last repeat the aligner's
-receipts with the DP and walk kernels' launches and summed device ms.
-A workload that fails fails the run: exit 1, its name and error on stderr,
-nothing on stdout.
+roundtrip, each repeat's wall, max RSS and (on the card) peak device bytes,
+each repeat's sha256 of the graph JSON and the count of distinct ones, and
+from its last repeat the aligner's receipts with the DP and walk kernels'
+launches and summed device ms and the adaptive split's (`gate`: rates,
+overhead, round trip, rounds by kind). Where routing is fixed (the host
+route, or a budget of 0) the repeats must give one graph, checked for an
+exact roundtrip once; where the adaptive split routes (a budget above 0 on
+a device) routing follows measured walls, so the graph may differ between
+repeats, and every repeat is checked: an exact roundtrip, and quality
+within QUALITY_TOLERANCE of the workload's reference figures (the
+headline's, BENCH_r05's) or else of the first repeat's. One aligner serves
+the warm-up and every workload of its route where routing is fixed; where
+the adaptive split routes, each workload gets a new one, whose measured
+rates carry over between its repeats only. A workload that fails fails the run: exit 1, its name and error on
+stderr, nothing on stdout.
 """
 from __future__ import annotations
 
@@ -81,13 +91,22 @@ def _headline_records():
     return make_accessory_pangenome(n_genomes=10, genome_len=4_600_000, seed=13)
 
 
+# the reference's graph of the headline (BENCH_r05), and how far a graph of
+# the kernel route may lie from it (relative for blocks and bp, absolute for
+# the core fraction): the kernels band B lanes where the host engine bands
+# 2W+2, so edits differ at band edges
+HEADLINE_QUALITY = {"n_blocks": 1156, "core_fraction": 0.4875, "pangenome_bp": 7028975}
+QUALITY_TOLERANCE = {"n_blocks": 0.01, "core_fraction": 0.01, "pangenome_bp": 0.001}
+
+
 @dataclasses.dataclass(frozen=True)
 class Workload:
     """One build workload: `make()` gives its records (None: read from the
     FASTA that the command-line option `option` names), built with
     BuildArgs(circular=True, jobs=jobs), best of `repeats`; `host` builds on
     the host engine (BatchAligner(device=None)); `host_scaling` adds one
-    serial build (jobs 1, PANGRAPH_TPU_NATIVE_THREADS=1)."""
+    serial build (jobs 1, PANGRAPH_TPU_NATIVE_THREADS=1); `quality` is the
+    reference's graph quality for the input, where known."""
 
     make: Callable
     jobs: int
@@ -95,6 +114,7 @@ class Workload:
     host: bool = False
     host_scaling: bool = False
     option: str = None
+    quality: dict = None
 
     def build_args(self) -> BuildArgs:
         return BuildArgs(circular=True, jobs=self.jobs)
@@ -108,7 +128,7 @@ WORKLOADS = {
         lambda: make_synthetic(n_genomes=4, length=2_500_000, seed=7, sub_rate=0.005), jobs=2, repeats=2),
     "russian_doll_plasmids": Workload(None, jobs=2, repeats=3, option="plasmids"),
     "real_plasmids_15x": Workload(None, jobs=2, repeats=2, option="plasmids15"),
-    HEADLINE: Workload(_headline_records, jobs=2, repeats=3),
+    HEADLINE: Workload(_headline_records, jobs=2, repeats=3, quality=HEADLINE_QUALITY),
     HEADLINE + "_host": Workload(_headline_records, jobs=2, repeats=2, host=True),
 }
 WARMUP = SYNTH  # the workload built once before the timed ones
@@ -151,19 +171,35 @@ def graph_sha256(graph) -> str:
     return hashlib.sha256(json.dumps(graph.to_json_dict(), sort_keys=True).encode()).hexdigest()
 
 
-def timed_build(records, args, aligner, repeats=1, stats=False):
+def quality_off(quality: dict, want: dict) -> dict:
+    """The quality figures of `quality` that lie beyond QUALITY_TOLERANCE of
+    `want`'s: {name: (got, want)}."""
+    off = {}
+    for k, tol in QUALITY_TOLERANCE.items():
+        if abs(quality[k] - want[k]) / (1 if k == "core_fraction" else want[k]) > tol:
+            off[k] = (quality[k], want[k])
+    return off
+
+
+def timed_build(records, args, aligner, repeats=1, stats=False, quality=None):
     """Best-of-N host-clock wall around build(). With stats=True the last
     repeat collects the aligner's receipts: DP cells, aligned reference bp
     and engine seconds summed over its round-level STATS rows ("host",
-    "mixed[...]"; the per-launch-group "device.*" and per-combined-round
-    "broker[...]" rows count the same device cells again), engine_report(),
-    the kernels' launches and, on the card, their summed device ms from the
-    launch log. Every repeat's graph JSON is hashed; repeats that differ
-    raise. The roundtrip is verified once, after the timed repeats.
+    "host[probe-wait,...]", "mixed[...]"; the per-launch-group "device.*"
+    and per-combined-round "broker[...]" rows count the same device cells
+    again), engine_report(), the kernels' launches and, on the card, their
+    summed device ms from the launch log. Every repeat's graph JSON is
+    hashed. Where the aligner's routing is fixed (no device, or a budget of
+    0), repeats that differ raise and the roundtrip is verified once, after
+    the timed repeats. Where the adaptive split routes (aligner.gated()),
+    every repeat's roundtrip is verified and its quality held within
+    QUALITY_TOLERANCE of `quality` (the reference's figures) or, where that
+    is None, of the first repeat's; these checks are outside the walls.
 
     Returns (best wall, graph, align stats or None, runs), runs holding
-    each repeat's wall, max RSS and (on the card) peak device bytes, and
-    the graph's sha256."""
+    each repeat's wall, max RSS, (on the card) peak device bytes and graph
+    sha256, the last repeat's sha256 and the count of distinct ones."""
+    gated = aligner.gated()
     cuda = _cuda_device(aligner)
     best, graph, align_stats = None, None, None
     runs = {"walls_s": [], "max_rss_bytes": []}
@@ -197,8 +233,15 @@ def timed_build(records, args, aligner, repeats=1, stats=False):
         runs["max_rss_bytes"].append(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
         digests.append(graph_sha256(graph))
         _say(f"repeat {rep + 1}/{repeats}: {dt:.3f} s")
+        if gated:
+            verify_roundtrip(graph, records)
+            q = graph_quality(graph)
+            quality = quality or q
+            off = quality_off(q, quality)
+            if off:
+                raise AssertionError(f"repeat {rep + 1}'s graph quality is off: {off}")
         if collect:
-            rounds = [s for s in BatchAligner.STATS if s[0] == "host" or s[0].startswith("mixed[")]
+            rounds = [s for s in BatchAligner.STATS if s[0] == "host" or s[0].startswith(("mixed[", "host["))]
             cells = sum(s[2] for s in rounds)
             bp = sum(s[4] for s in rounds)
             secs = sum(s[3] for s in rounds)
@@ -212,10 +255,13 @@ def timed_build(records, args, aligner, repeats=1, stats=False):
                 "launches": dict(stripe_v2.LAUNCHES),
                 "kernel_ms": kernel_ms,
             }
-    if len(set(digests)) > 1:
-        raise AssertionError(f"the graphs of the {repeats} repeats differ: sha256 {digests}")
-    runs["graph_sha256"] = digests[0]
-    verify_roundtrip(graph, records)
+    if not gated:
+        if len(set(digests)) > 1:
+            raise AssertionError(f"the graphs of the {repeats} repeats differ: sha256 {digests}")
+        verify_roundtrip(graph, records)
+    runs["graph_sha256s"] = digests
+    runs["distinct_graphs"] = len(set(digests))
+    runs["graph_sha256"] = digests[-1]
     return best, graph, align_stats, runs
 
 
@@ -344,7 +390,10 @@ def run(opts) -> dict:
     aligners = {}
 
     def aligner(host: bool):
-        if host not in aligners:
+        """The route's aligner. Where the adaptive split routes, each call
+        gets a new one, so that a workload's measured rates are its own and
+        not the warm-up's or an earlier workload's."""
+        if host not in aligners or aligners[host].gated():
             aligners[host] = BatchAligner(base.banded_params, base.extra_band_width, base.max_alignment_attempts,
                                           device=None if host else device)
         return aligners[host]
@@ -386,7 +435,8 @@ def run(opts) -> dict:
         try:
             recs = read_fasta(getattr(opts, w.option)) if w.option else records(w)
             al = aligner(w.host)
-            dt, graph, align, runs = timed_build(recs, w.build_args(), al, repeats=repeats, stats=True)
+            dt, graph, align, runs = timed_build(recs, w.build_args(), al, repeats=repeats, stats=True,
+                                                 quality=w.quality)
             rep = workload_report(recs, dt, graph, align, runs)
             rep["route"] = "host" if w.host else str(device)
             if w.host_scaling:
@@ -431,6 +481,7 @@ def run(opts) -> dict:
         "workload": top,
         "device": device_info(device),
         "native_budget": BatchAligner.NATIVE_CELL_BUDGET,
+        "gate": (head.get("align") or {}).get("engines", {}).get("gate"),
         "detail": detail,
     }
 

@@ -7,19 +7,35 @@ re-alignment jobs of a merge round (across every merge promise and
 reconsensus realignment — reweave.rs:52 par_iter and pangraph_block.rs:295)
 become one batch here.
 
-Routing is static. Every job the kernels can take runs on the device; the
-host C++ engine (native/stripe.cpp) takes the jobs the kernels cannot:
-bands past the widest kernel band that the host can still widen, jobs past
-the largest length tier or whose end corner lies outside the widest band,
-event-dense jobs of the checkpoint route, dead walks without a boundary
-hit, and jobs whose retries ran out; and, up to NATIVE_CELL_BUDGET cells a
-round, the round's smallest jobs. With device=None every job runs on the
-host engine.
+Every job the kernels can take runs on the device unless the round's host
+leg takes it; the host C++ engine (native/stripe.cpp) takes the jobs the
+kernels cannot: bands past the widest kernel band that the host can still
+widen, jobs past the largest length tier or whose end corner lies outside
+the widest band, event-dense jobs of the checkpoint route, dead walks
+without a boundary hit, and jobs whose retries ran out. With device=None
+every job runs on the host engine.
+
+The host leg takes the round's smallest jobs up to a budget of DP cells.
+At NATIVE_CELL_BUDGET 0 (the default) it takes none. Above 0 the budget is
+the reference's adaptive host/device split (`_gate`, the reference's
+`_run_round`): from each engine's measured rate (cells/s EMAs, `_observe_rate`)
+and the device's per-round overhead it gives the host the share that makes
+both legs end together, gives the device nothing where mixing is not
+predicted to beat the host alone by MIXED_GUARANTEE (with a probe slice
+every `_probe_period` such rounds), and, until a device rate is known, caps
+the device at a DEV_PROBE_CELLS probe leg, one in flight per aligner. Every
+decision is logged (GATE_LOG). The reference sends every job to the host
+where its backend is not a TPU; the port has no backend detection:
+device="cpu" is an explicit request for the kernels' plain versions, and the
+gate runs there as on the card. Unlike the reference, nothing here serves a
+device leg's jobs from the host after the leg fails or lags: its exception
+reaches the caller.
 
 A round has two legs, as in the reference (`_run_round`): the device leg
 is planned in the calling thread and handed to the aligner's round broker,
-and the host leg runs in the calling thread while the device leg is in
-flight. The broker (`_broker_loop`) merges the planned launches of the
+and the host leg runs on a thread of its own while the calling thread
+waits for the device leg and decodes its events, so the legs end side by
+side, as the reference's broker, which decodes, lets them. The broker (`_broker_loop`) merges the planned launches of the
 legs that concurrent merge threads submit within BROKER_GATHER_S into one
 combined round: launches whose (R_cap, B, K, route) are equal become one,
 split again at the memory rule's problem count. One combined round is in
@@ -86,20 +102,35 @@ class AlignJob:
 
 
 class _BrokerTicket:
-    """One leg's slot in a combined device round."""
+    """One leg's slot in a combined device round; `round` is the round's
+    rate observation (_RoundClock), set with `out`."""
 
-    __slots__ = ("ev", "out", "exc")
+    __slots__ = ("ev", "out", "exc", "round")
 
     def __init__(self):
         self.ev = threading.Event()
         self.out = None
         self.exc = None
+        self.round = None
 
     def result(self):
         self.ev.wait()
         if self.exc is not None:
             raise self.exc
         return self.out
+
+
+class _RoundClock:
+    """A combined round's device-rate observation: the round's wall, then
+    each leg's decode added as the leg ends; observed when the last one
+    has."""
+
+    __slots__ = ("secs", "cells", "legs")
+
+    def __init__(self, secs: float, cells: int, legs: int):
+        self.secs = secs
+        self.cells = cells
+        self.legs = legs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -184,6 +215,36 @@ class BatchAligner:
     # an idle broker thread stands down after this long; a submit respawns it
     BROKER_IDLE_S = 2.0
 
+    # The adaptive split's settings, the reference's values
+    # (pangraph_tpu/ops/batch_align.py:537-567). Rounds below
+    # RATE_MIN_CELLS are latency-dominated: no rate is observed from them.
+    RATE_MIN_CELLS = 50_000_000
+    # the device's modeled per-round overhead (s), a floor: subtracted from a
+    # round's wall when its rate is observed (so the device rate is a slope)
+    # and charged back when a round's wall is predicted
+    DEV_LATENCY_S = 0.03
+    # one tiny host-to-card-to-host round trip (s), timed when the first CUDA
+    # aligner is built; the gate's overhead is max(DEV_LATENCY_S, it), the
+    # latter capped at 1 s. Stays None off the card.
+    MEASURED_RTT = None
+    # mixing must be predicted to beat the host alone by this factor...
+    MIXED_GUARANTEE = 0.85
+    # ...and the device slope must beat the host rate by this one
+    DEVICE_MIN_ADVANTAGE = 1.3
+    # until a device rate is known, a round's device leg is capped at this
+    DEV_PROBE_CELLS = 400_000_000
+    # the gate's budget for "every job on the host"
+    HOST_ALL = 1 << 62
+    # one dict per gated round (_gate, _run_round): the state before (C, h,
+    # d, L, budget, starved, period, inflight), what the gate did (gate,
+    # cap, starved_after, period_after), the split (fill: the smallest jobs'
+    # cells within cap; next: the first job's that did not fit; wide: the
+    # cells of the bands past the clamp that the host took beyond fill;
+    # host, dev) and the round's kind (engine_report()["gate"]["rounds"])
+    GATE_LOG = []
+    # the rates and overhead of the aligner that last gated or observed one
+    _LAST_GATE = {"host_rate": None, "dev_rate": None, "dev_latency_s": None}
+
     # per-engine DP-cell accounting: engine -> [cells, warm_cells, warm_secs].
     # No engine compiles inside a round here, so every cell is warm; the
     # fields keep the reference's receipt shape. The device's seconds are
@@ -221,6 +282,21 @@ class BatchAligner:
                 raise RuntimeError("BatchAligner(device='cuda'): no CUDA device is available")
             cuda_build.build_all()  # compile the kernels now, not inside a round
         self.mesh = mesh or (None if self.device is None else Mesh((resolve_device(self.device),)))
+        if self.device is not None and self.device.type == "cuda" and type(self).MEASURED_RTT is None:
+            type(self).MEASURED_RTT = self._round_trip_s(self.mesh.devices[0])
+        # the adaptive split's state (reference: TpuBatchAligner.__init__):
+        # each engine's rate EMA (cells/s), the device's overhead floor, the
+        # gated rounds since the device rate was last observed, the probe
+        # slice's period (8, doubling to 64 while the gate stays closed), and
+        # whether a probe leg is in flight; _gate_lock orders the gate's
+        # decisions and the observations
+        self._host_rate = None
+        self._dev_rate = None
+        self._dev_lat = self.DEV_LATENCY_S
+        self._dev_starved = 0
+        self._probe_period = 8
+        self._probe_inflight = False
+        self._gate_lock = threading.Lock()
         # per physical device: its record budget and the bytes granted to the
         # rounds in flight there (shards on one device share both)
         self._budget = {}
@@ -237,7 +313,7 @@ class BatchAligner:
         self._mem_outstanding = dict.fromkeys(self._budget, 0)
         self._streams = {}  # shard -> the CUDA stream the broker launches it on
         self._broker_lock = threading.Lock()
-        self._broker_queue = []  # (jobs, planned, ticket) per leg
+        self._broker_queue = []  # (jobs, planned, cells, ticket) per leg
         self._broker_wake = threading.Event()
         self._broker_running = False
 
@@ -384,7 +460,20 @@ class BatchAligner:
         out["broker"] = broker
         with cls._ENGINE_LOCK:
             out["device_shards"] = {k: {"launches": n, "cells": c} for k, (n, c) in sorted(cls.SHARDS.items())}
+            kinds = [e.get("kind") for e in cls.GATE_LOG]
+        # the adaptive split: the rates and overhead of the aligner that last
+        # gated or observed, the overhead's floor and the measured round trip,
+        # and the gated rounds by kind
+        out["gate"] = {**cls._LAST_GATE, "dev_latency_floor_s": cls.DEV_LATENCY_S,
+                       "measured_rtt_s": cls.MEASURED_RTT,
+                       "rounds": {k: kinds.count(k) for k in cls.GATE_KINDS if k in kinds}}
         return out
+
+    # a gated round's kind: a probe leg; whole on the host while a probe leg
+    # is in flight; both legs; whole on the host by the closed gate; a probe
+    # slice; the device alone; the host alone within the budget or the open
+    # gate's share
+    GATE_KINDS = ("probe", "probe-wait", "mixed", "host-only", "slice", "device-only", "host")
 
     @classmethod
     def reset_engine_stats(cls) -> None:
@@ -394,6 +483,7 @@ class BatchAligner:
                 e[2] = 0.0
             cls.STATS.clear()
             cls.SHARDS.clear()
+            cls.GATE_LOG.clear()
 
     # ------------------------------------------------------------ rounds
 
@@ -411,12 +501,141 @@ class BatchAligner:
         with self._ENGINE_LOCK:
             self.STATS.append((kind, len(jobs), cells, secs, sum(len(j.ref) for j in jobs)))
 
+    # ------------------------------------------------------------ the gate
+
+    @staticmethod
+    def _round_trip_s(dev) -> float:
+        """Seconds of one tiny host-to-card-to-host round trip on `dev`, its
+        stream synchronized before and after: the reference's link probe
+        transfer (`_probe_link`), without its thread, timeout or quarantine.
+        A transfer that raises raises here."""
+        x = torch.arange(16, dtype=torch.int32)
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        x.to(dev).cpu()
+        torch.cuda.synchronize(dev)
+        return time.time() - t0
+
+    def gated(self) -> bool:
+        """Does the adaptive split route this aligner's rounds? Yes on a
+        device (the card or the CPU) with the host engine built and
+        NATIVE_CELL_BUDGET above 0."""
+        return self.device is not None and self.NATIVE_CELL_BUDGET > 0 and self._native_lib() is not None
+
+    def _note_rates(self) -> None:
+        type(self)._LAST_GATE = {"host_rate": self._host_rate, "dev_rate": self._dev_rate,
+                                 "dev_latency_s": self._effective_dev_lat()}
+
+    def _observe_rate(self, which: str, cells: int, secs: float) -> None:
+        """`cells` DP cells in `secs` by the host engine ("host") or the
+        device ("dev") join that engine's rate EMA, half the last estimate
+        and half the new (reference `_observe_rate`). Rounds under
+        RATE_MIN_CELLS say nothing. The device's rate is a slope: its
+        overhead is taken off the wall first; a wall under the overhead
+        decays MEASURED_RTT to half the wall instead (the round trip was
+        stale), and one under 1.5 times the overhead says nothing."""
+        if cells < self.RATE_MIN_CELLS or secs <= 0:
+            return
+        with self._gate_lock:
+            if which == "dev":
+                L = self._effective_dev_lat()
+                if secs < L:
+                    type(self).MEASURED_RTT = max(secs * 0.5, 1e-3)
+                    return
+                if secs <= 1.5 * L:
+                    return
+                secs -= L
+            obs = cells / secs
+            attr = "_host_rate" if which == "host" else "_dev_rate"
+            prev = getattr(self, attr)
+            setattr(self, attr, obs if prev is None else 0.5 * prev + 0.5 * obs)
+            if which == "dev":
+                self._dev_starved = 0
+            self._note_rates()
+
+    def _effective_dev_lat(self) -> float:
+        """The device's modeled per-round overhead: the floor, raised to the
+        measured round trip (capped at 1 s)."""
+        L = self._dev_lat
+        if self.MEASURED_RTT is not None:
+            L = max(L, min(self.MEASURED_RTT, 1.0))
+        return L
+
+    def _gate(self, cells: list) -> tuple:
+        """The host leg's budget for a round of jobs of `cells` DP cells, by
+        the reference's adaptive split (its `_run_round`), and the round's
+        GATE_LOG entry. C is the round's cells, h and d the engines' rates,
+        L the device's overhead. Without a device rate: every job to the
+        host while a probe leg is in flight ("probe-wait"), else the device
+        gets at most DEV_PROBE_CELLS ("probe"). With both rates the device
+        takes part only if d >= DEVICE_MIN_ADVANTAGE * h and the predicted
+        mixed wall (L*d + C)/(d + h) beats the host's C/h by MIXED_GUARANTEE
+        ("open"): the host then gets h(L*d + C)/(d + h), at which both legs
+        end together, or NATIVE_CELL_BUDGET where that is more; after 8
+        such rounds that left the device under RATE_MIN_CELLS, one round's
+        host share is cut to give it that. Otherwise every job goes to the
+        host ("closed"), but every _probe_period-th such round of at least
+        2 RATE_MIN_CELLS gives the device RATE_MIN_CELLS ("slice") and
+        doubles the period, up to 64; an open gate sets it back to 8. With
+        a device rate and no host rate the budget stands ("fixed")."""
+        C = sum(cells)
+        budget = self.NATIVE_CELL_BUDGET
+        with self._gate_lock:
+            h, d, L = self._host_rate, self._dev_rate, self._effective_dev_lat()
+            entry = {"aligner": id(self), "C": C, "h": h, "d": d, "L": L, "budget": budget,
+                     "starved": self._dev_starved, "period": self._probe_period, "inflight": self._probe_inflight}
+            if d is None:
+                if self._probe_inflight:
+                    gate, budget = "probe-wait", self.HOST_ALL
+                else:
+                    gate, budget = "probe", max(budget, C - self.DEV_PROBE_CELLS)
+            elif h and d:
+                if d >= self.DEVICE_MIN_ADVANTAGE * h and (L * d + C) / (d + h) < C / h * self.MIXED_GUARANTEE:
+                    gate = "open"
+                    self._probe_period = 8
+                    budget = max(budget, int(h * (L * d + C) / (d + h)))
+                    if C >= 2 * self.RATE_MIN_CELLS and C - budget < self.RATE_MIN_CELLS:
+                        self._dev_starved += 1
+                        if self._dev_starved >= 8:
+                            budget = min(budget, C - self.RATE_MIN_CELLS)
+                            self._dev_starved = 0
+                else:
+                    self._dev_starved += 1
+                    if self._dev_starved >= self._probe_period and C >= 2 * self.RATE_MIN_CELLS:
+                        gate, budget = "slice", C - self.RATE_MIN_CELLS
+                        self._dev_starved = 0
+                        self._probe_period = min(self._probe_period * 2, 64)
+                    else:
+                        gate, budget = "closed", self.HOST_ALL
+            else:
+                gate = "fixed"
+            entry.update(gate=gate, cap=budget, starved_after=self._dev_starved, period_after=self._probe_period)
+            self._note_rates()
+            with self._ENGINE_LOCK:
+                self.GATE_LOG.append(entry)
+        return budget, entry
+
+    def _claim_probe(self) -> bool:
+        """Take the aligner's one probe leg: a test-and-set of _probe_inflight."""
+        with self._gate_lock:
+            if self._probe_inflight:
+                return False
+            self._probe_inflight = True
+            return True
+
     def _run_round(self, jobs: list, widths: list, kbumps: list):
         """One alignment round: route each job, submit the device leg, run
-        the host leg meanwhile, collect, and return (edits, boundary,
-        overflow) in job order. The host leg takes the smallest jobs while
-        their cells stay within NATIVE_CELL_BUDGET, and the jobs whose band
-        is past the kernel's clamp (reference `_run_round`)."""
+        the host leg on a thread while this one collects and decodes the
+        device leg, and return (edits, boundary, overflow) in job order. The
+        host leg takes the smallest jobs while their cells stay within the
+        budget, NATIVE_CELL_BUDGET or, where that is above 0, the adaptive
+        split's (_gate), and the jobs whose band is past the kernel's clamp
+        (reference `_run_round`). Where the split routes, the host leg's
+        wall gives the host rate. A probe leg (no device rate yet) seeds the
+        device rate from its wall, host leg included, as the reference's
+        does; a round that finds a probe leg in flight runs whole on the
+        host ("host[probe-wait,n=<jobs>]"). A device leg that fails raises:
+        no job of it is served from the host."""
         n = len(jobs)
         t0 = time.time()
         cells = [self._job_cells(j, w) for j, w in zip(jobs, widths)]
@@ -429,38 +648,95 @@ class BatchAligner:
             return out
         max_w_kernel = (self.MAX_B - 2) // 2
         nat_set = set()
+        gate = None
         if self._native_lib() is not None:
-            acc = 0
+            cap = self.NATIVE_CELL_BUDGET
+            if self.gated():
+                cap, gate = self._gate(cells)
+            acc, nxt = 0, None
             for i in sorted(range(n), key=lambda i: cells[i]):
-                if acc + cells[i] > self.NATIVE_CELL_BUDGET:
+                if acc + cells[i] > cap:
+                    nxt = cells[i]
                     break
                 nat_set.add(i)
                 acc += cells[i]
             # the device would clamp these bands; the host is the only engine
             # that widens them, up to the same area guard align_many uses
-            nat_set.update(i for i in range(n) if widths[i] > max_w_kernel and cells[i] <= self.NATIVE_WIDEN_AREA)
+            wide = {i for i in range(n) if widths[i] > max_w_kernel and cells[i] <= self.NATIVE_WIDEN_AREA}
+            if gate is not None:
+                gate.update(fill=acc, next=nxt, wide=sum(cells[i] for i in wide - nat_set))
+            nat_set |= wide
         nat_idx = sorted(nat_set)
         dev_idx = [i for i in range(n) if i not in nat_set]
+        nat_cells = sum(cells[i] for i in nat_idx)
+        probe = gate is not None and gate["gate"] == "probe" and bool(dev_idx)
+        if gate is not None and (gate["gate"] == "probe-wait" or (probe and not self._claim_probe())):
+            gate.update(race_lost=probe, host=sum(cells), dev=0, kind="probe-wait")
+            tn = time.time()
+            e, b, _ = self._run_round_native(jobs, widths)
+            self._observe_rate("host", sum(cells), time.time() - tn)
+            self._record(f"host[probe-wait,n={n}]", jobs, sum(cells), time.time() - t0)
+            return e, b, [False] * n
+        if gate is not None:
+            gate.update(host=nat_cells, dev=sum(cells) - nat_cells,
+                        kind=self._gate_kind(gate["gate"], nat_idx, dev_idx))
         edits = [None] * n
         boundary = [False] * n
         overflow = [False] * n
-        collect = None
-        if dev_idx:
-            collect = self._run_round_device(
-                [jobs[i] for i in dev_idx], [widths[i] for i in dev_idx], [kbumps[i] for i in dev_idx]
-            )
+
+        def host_leg():
+            tn = time.time()
+            e, b, _ = self._run_round_native([jobs[i] for i in nat_idx], [widths[i] for i in nat_idx])
+            if gate is not None:
+                self._observe_rate("host", nat_cells, time.time() - tn)
+            for s, i in enumerate(nat_idx):
+                edits[i], boundary[i] = e[s], b[s]
+
+        host_pool = None
+        t_leg = time.time()
         try:
-            if nat_idx:
-                e, b, _ = self._run_round_native([jobs[i] for i in nat_idx], [widths[i] for i in nat_idx])
-                for s, i in enumerate(nat_idx):
-                    edits[i], boundary[i] = e[s], b[s]
-        finally:
-            if collect is not None:  # wait for the device leg even when the host leg raised
+            if dev_idx:
+                collect, dev_served = self._run_round_device(
+                    [jobs[i] for i in dev_idx], [widths[i] for i in dev_idx], [kbumps[i] for i in dev_idx]
+                )
+                # both legs side by side: the host leg on a thread of its own
+                # while this one waits for the device leg and decodes it, so
+                # that the round's wall is the longer leg's, as the gate's
+                # split assumes
+                if nat_idx:
+                    host_pool = cf.ThreadPoolExecutor(max_workers=1)
+                    host_fut = host_pool.submit(host_leg)
                 e, b, o = collect()
                 for s, i in enumerate(dev_idx):
                     edits[i], boundary[i], overflow[i] = e[s], b[s], o[s]
+                if host_pool is not None:
+                    host_fut.result()
+            elif nat_idx:
+                host_leg()
+        finally:
+            if host_pool is not None:  # wait for the host leg even when the device leg raised
+                host_pool.shutdown(wait=True)
+            if probe:
+                with self._gate_lock:
+                    self._probe_inflight = False
+        if probe:
+            # the device cells the leg served over its wall, the host leg's
+            # included: pessimistic, and corrected by the combined rounds'
+            self._observe_rate("dev", dev_served, time.time() - t_leg)
         self._record(f"mixed[n={len(nat_idx)},d={len(dev_idx)}]", jobs, sum(cells), time.time() - t0)
         return edits, boundary, overflow
+
+    @staticmethod
+    def _gate_kind(gate: str, nat_idx: list, dev_idx: list) -> str:
+        """A gated round's kind (GATE_KINDS) from what the gate did and the
+        legs it left."""
+        if gate == "closed":
+            return "host-only"
+        if gate == "slice" or (gate == "probe" and dev_idx):
+            return gate
+        if dev_idx:
+            return "mixed" if nat_idx else "device-only"
+        return "host"
 
     def _run_round_native(self, jobs: list, widths: list):
         """Host C++ round: banded stripe DP + traceback per job, threaded
@@ -585,15 +861,23 @@ class BatchAligner:
         """Start a device leg: plan its launches in the calling thread (so
         that its launches, K values and host fallbacks are its own, whatever
         other legs it meets), submit them to the broker, and start the jobs
-        the kernels cannot take on host threads. Returns collect(), which
-        waits for the leg's combined round, decodes its events in the
-        calling thread, and returns (edits, boundary, overflow)."""
+        the kernels cannot take on host threads. Returns (collect, cells):
+        collect() waits for the leg's combined round, decodes its events in
+        the calling thread, collects the host threads' Edits, and returns
+        (edits, boundary, overflow); cells are the DP cells of the jobs
+        planned on the device, at the kernels' band (B - 2) // 2, as the
+        reference counts a probe leg's. Where the adaptive split routes
+        (gated()), the seconds collect() takes after the round join the
+        round's device-rate observation (_leg_decoded); elsewhere nothing is
+        observed and cells is 0."""
         n = len(jobs)
         edits = [None] * n
         boundary = [False] * n
         overflow = [False] * n
         planned, fallback_idx = self._plan(jobs, widths, kbumps)
-        ticket = self._broker_submit(jobs, planned) if planned else None
+        gated = self.gated()
+        leg_cells = sum(self._job_cells(j, w) for j, w in zip(jobs, widths)) if gated else 0
+        ticket = self._broker_submit(jobs, planned, leg_cells) if planned else None
         fb_pool = None
         fb_futs = {}
         if fallback_idx:
@@ -603,24 +887,47 @@ class BatchAligner:
         def collect():
             try:
                 if ticket is not None:
-                    self._decode(jobs, ticket.result(), edits, boundary, overflow)
+                    fetched = ticket.result()
+                    t_dec = time.time()
+                    self._decode(jobs, fetched, edits, boundary, overflow)
                 for i, f in fb_futs.items():
                     edits[i] = f.result()
+                if ticket is not None and ticket.round is not None:
+                    self._leg_decoded(ticket.round, time.time() - t_dec)
             finally:
                 if fb_pool is not None:
                     fb_pool.shutdown(wait=True)
             return edits, boundary, overflow
 
-        return collect
+        if not gated:
+            return collect, 0
+        return collect, sum(self._job_cells(jobs[i], (B - 2) // 2) for sub, _R, B, _K, _c in planned for i in sub)
+
+    def _leg_decoded(self, clock: _RoundClock, secs: float) -> None:
+        """A leg of a combined round has decoded its events and collected its
+        host threads' Edits in `secs`. The round's last leg observes the
+        device rate: the legs' cells (at their working bands) over the
+        round's wall plus every leg's seconds. The reference's broker times
+        one call that runs the round, decodes every leg in turn and waits
+        for the host threads; here the legs decode in their own threads, so
+        their seconds are added to the round's. Once per combined round.
+        No kernel compiles inside a round here, so every round is warm (the
+        reference observes warm rounds only)."""
+        with self._broker_lock:
+            clock.secs += secs
+            clock.legs -= 1
+            last = clock.legs == 0
+        if last:
+            self._observe_rate("dev", clock.cells, clock.secs)
 
     # ------------------------------------------------------------ broker
 
-    def _broker_submit(self, jobs: list, planned: list) -> _BrokerTicket:
-        """Queue a leg's planned launches for the next combined round;
-        start the broker thread where none runs."""
+    def _broker_submit(self, jobs: list, planned: list, cells: int) -> _BrokerTicket:
+        """Queue a leg's planned launches (of `cells` DP cells) for the next
+        combined round; start the broker thread where none runs."""
         tk = _BrokerTicket()
         with self._broker_lock:
-            self._broker_queue.append((jobs, planned, tk))
+            self._broker_queue.append((jobs, planned, cells, tk))
             spawn = not self._broker_running
             self._broker_running = True
             self._broker_wake.set()
@@ -631,7 +938,9 @@ class BatchAligner:
     def _broker_loop(self) -> None:
         """The broker thread: take the queued legs (after a lone one, wait
         BROKER_GATHER_S for others), run them as one combined round, hand
-        each ticket its fetched events; stand down after BROKER_IDLE_S
+        each ticket its fetched events and, where the adaptive split routes,
+        the round's clock (_RoundClock: the round's wall, _run_combined's);
+        stand down after BROKER_IDLE_S
         idle. Every ticket is completed, with the exception where one was
         raised, so no leg waits forever."""
         try:
@@ -653,8 +962,13 @@ class BatchAligner:
                         batch += self._broker_queue
                         self._broker_queue = []
                 try:
-                    for (*_, tk), out in zip(batch, self._run_combined(batch)):
-                        tk.out = out
+                    t_round = time.time()
+                    outs = self._run_combined(batch)
+                    clock = None
+                    if self.gated():
+                        clock = _RoundClock(time.time() - t_round, sum(c for _j, _p, c, _tk in batch), len(batch))
+                    for (*_, tk), out in zip(batch, outs):
+                        tk.out, tk.round = out, clock
                 except BaseException as ex:
                     for *_, tk in batch:
                         if tk.out is None:
@@ -673,12 +987,12 @@ class BatchAligner:
 
     def _run_combined(self, batch: list) -> list:
         """One combined round over the legs of `batch` ([(jobs, planned,
-        ticket)]): the legs' planned launches with equal (R_cap, B, K,
+        cells, ticket)]): the legs' planned launches with equal (R_cap, B, K,
         route) merged, longest problems first, and split again at the
         memory rule's count (_launch_cap); run and fetched by _run_planned.
         Returns per leg [(job indices, K, fetched arrays of those jobs)]."""
         merged = {}
-        for leg, (jobs, planned, _tk) in enumerate(batch):
+        for leg, (jobs, planned, _cells, _tk) in enumerate(batch):
             for sub, R_cap, B, K, ckpt in planned:
                 merged.setdefault((R_cap, B, K, ckpt), []).extend((leg, i, jobs[i]) for i in sub)
         launches = []

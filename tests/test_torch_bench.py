@@ -89,6 +89,7 @@ def test_repeats_share_one_graph_hash(monkeypatch):
     al = port_aligner(args, None)
     _dt, graph, _a, runs = bench.timed_build(recs, args, al, repeats=2)
     assert runs["graph_sha256"] == bench.graph_sha256(graph) and len(runs["graph_sha256"]) == 64
+    assert runs["graph_sha256s"] == [runs["graph_sha256"]] * 2 and runs["distinct_graphs"] == 1
     assert len(runs["walls_s"]) == len(runs["max_rss_bytes"]) == 2
 
     real_build, calls = bench.build, []
@@ -102,6 +103,73 @@ def test_repeats_share_one_graph_hash(monkeypatch):
     monkeypatch.setattr(bench, "build", other_graph_second_time)
     with pytest.raises(AssertionError, match="repeats differ"):
         bench.timed_build(recs, args, al, repeats=2)
+
+
+@pytest.mark.parametrize("case", ["hashes", "roundtrip", "quality"])
+def test_gated_repeats_check_every_graph(monkeypatch, case):
+    """Under a host-leg budget on a device the adaptive split routes by
+    measured walls, so repeats may give other graphs: timed_build reports
+    every repeat's hash and the count of distinct ones instead of raising,
+    and holds every repeat to an exact roundtrip and to the first repeat's
+    quality within QUALITY_TOLERANCE, the limits chip_smoke's check_quality
+    holds the headline to."""
+    chip_smoke.check_quality("test", bench.HEADLINE_QUALITY)
+    with pytest.raises(AssertionError, match="beyond"):
+        chip_smoke.check_quality("test", {**bench.HEADLINE_QUALITY, "n_blocks": 2 * bench.HEADLINE_QUALITY["n_blocks"]})
+    monkeypatch.setattr(BatchAligner, "NATIVE_CELL_BUDGET", 1000)
+    args = port_params.BuildArgs(circular=True, jobs=2)
+    recs = port_synthetic(2, 1500, seed=1)
+    al = port_aligner(args, "cpu")
+    assert al.gated()
+    calls = []
+    if case == "hashes":
+        hashes = iter(["a" * 64, "b" * 64])
+        monkeypatch.setattr(bench, "graph_sha256", lambda graph: next(hashes))
+    real_build, real_quality = bench.build, bench.graph_quality
+
+    def second_is_other(records, build_args, aligner=None):
+        calls.append(1)
+        if case == "roundtrip" and len(calls) == 2:
+            records = port_synthetic(2, 1500, seed=2)
+        return real_build(records, build_args, aligner=aligner)
+
+    def second_is_off(graph):
+        q = real_quality(graph)
+        return {**q, "n_blocks": q["n_blocks"] * 2} if len(calls) == 2 else q
+
+    if case != "hashes":
+        monkeypatch.setattr(bench, "build", second_is_other)
+        monkeypatch.setattr(bench, "graph_quality", second_is_off)
+    if case == "hashes":
+        _dt, _g, _a, runs = bench.timed_build(recs, args, al, repeats=2)
+        assert runs["graph_sha256s"] == ["a" * 64, "b" * 64] and runs["distinct_graphs"] == 2
+        assert runs["graph_sha256"] == "b" * 64
+    else:
+        with pytest.raises(AssertionError, match="Roundtrip" if case == "roundtrip" else "quality is off"):
+            bench.timed_build(recs, args, al, repeats=2)
+
+
+def test_gated_line_carries_the_gate_receipts(monkeypatch, capsys):
+    """Under a budget the line carries the headline's gate receipts, and the
+    headline runs on an aligner of its own, not the warm-up's, so its rates
+    are measured afresh."""
+    _tiny_table(monkeypatch)
+    made = []
+    real_init = BatchAligner.__init__
+
+    def counting_init(self, *a, **k):
+        made.append(self)
+        real_init(self, *a, **k)
+
+    monkeypatch.setattr(BatchAligner, "__init__", counting_init)
+    assert bench.main(["--device", "cpu", "--repeats", "2", "--native-budget", "1e8",
+                       "--workload", bench.HEADLINE]) == 0
+    line = json.loads(capsys.readouterr().out)
+    rep = line["detail"][bench.HEADLINE]
+    assert line["gate"] == rep["align"]["engines"]["gate"]
+    assert line["gate"]["rounds"] and set(line["gate"]["rounds"]) <= set(BatchAligner.GATE_KINDS)
+    assert len(rep["graph_sha256s"]) == 2 and rep["distinct_graphs"] >= 1 and rep["roundtrip"] == "exact"
+    assert len(made) == 2 and made[0] is not made[1]  # the warm-up's and the headline's own
 
 
 def test_device_cuda_without_cuda_exits_1(monkeypatch, capsys):

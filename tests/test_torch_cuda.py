@@ -255,6 +255,31 @@ def test_align_many_on_the_card_matches_the_cpu(ckpt_bytes):
         assert np.array_equal(a.apply(j.ref), j.qry)
 
 
+def test_gated_round_on_the_card(monkeypatch):
+    """The first CUDA aligner times a host-to-card round trip
+    (MEASURED_RTT > 0); under a host-leg budget the adaptive split gates
+    the round: a probe leg on the card beside the budget's host leg, and
+    every Edit reproduces its query."""
+    need_cuda()
+    rng = np.random.default_rng(31)
+    jobs = [AlignJob(r, q, BandParameters(ms, 20)) for r, q, ms in pairs(rng, 12, 400, 3000)]
+    al = BatchAligner(BandedAlignParams(), 5, 4, device="cuda")
+    assert BatchAligner.MEASURED_RTT is not None and BatchAligner.MEASURED_RTT > 0
+    cells = sorted(al._job_cells(j, 25) for j in jobs)
+    monkeypatch.setattr(BatchAligner, "NATIVE_CELL_BUDGET", cells[0])
+    BatchAligner.reset_engine_stats()
+    assert al.gated()
+    edits = al.align_many(jobs)
+    first = BatchAligner.GATE_LOG[0]
+    assert first["gate"] == "probe" and first["kind"] == "probe" and first["host"] == cells[0]
+    assert first["L"] == max(BatchAligner.DEV_LATENCY_S, min(BatchAligner.MEASURED_RTT, 1.0))
+    report = BatchAligner.engine_report()
+    assert report["device"]["cells"] > 0 and report["host"]["cells"] > 0
+    assert report["gate"]["measured_rtt_s"] == BatchAligner.MEASURED_RTT
+    for a, j in zip(edits, jobs):
+        assert np.array_equal(a.apply(j.ref), j.qry)
+
+
 @pytest.mark.parametrize("ckpt", [False, True], ids=["stripe", "ckpt"])
 def test_batch_launches_do_not_wait_for_the_stream(ckpt):
     """stripe_align and stripe_align_ckpt (the batch path) upload and launch
