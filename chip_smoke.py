@@ -6,8 +6,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 1. toolchain: torch, CUDA, nvcc, the card and its power limit;
 2. build: the five CUDA kernel sources (csrc/*.cu, one nvcc each, in
-   parallel) and the host C++ engine (native/*.cpp), from the sources in
-   this checkout;
+   parallel) and the host C++ engine (native/*.cpp), its default build and
+   its scalar one (-DSTRIPE_FORCE_SCALAR), from the sources in this
+   checkout; then the host engine's two row loops on the reference's 40
+   parity jobs (tests/test_native.py:94), which must agree job for job,
+   with the row loop the default build selected on this host;
 3. kernels against their plain PyTorch versions on the card, on random pairs
    with indels, IUPAC codes, N and shifted bands: the stripe DP and its walk
    at band widths B in {128, 256, 2048} and record rows R in {4096, 10240},
@@ -18,10 +21,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
    (B 1920, R 131072) and (B 2048, R 10240), every problem through the
-   kernels, whose events must equal the v2 kernels', every problem's
+   kernels, whose events must equal the v2 kernels', and at (B 128,
+   R 65536) and (B 2048, R 10240) (CKPT_PLAIN_SHAPES) every problem's
    carries against the plain DP's, and two problems of each shape (the one
    with the most windows among them) through the plain walk too (carries,
-   events and meta equal element for element);
+   events and meta equal element for element); at (B 1920, R 131072) the
+   kernels are timed and held against the v2 kernels' events only;
    kernel and plain times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
    and cycles a dependent read;
@@ -133,8 +138,22 @@ Phases, one line each (any failure exits non-zero and prints no result):
    split equal to the reference's rule recomputed from the state logged
    before it (check_gate_log); the engines' rates, the overhead and the
    measured round trip, the rounds by kind, the wall and the device share
-   on `phase11.*` lines. It runs after phase 10; a `[total]` line then
-   gives the run's wall.
+   on `phase11.*` lines. It runs after phase 10;
+12. the checkpoint route: the headline built as in phase 11, with the
+   aligner's record budget cut to CKPT_ROUTE_RECORD_BUDGET bytes, so that
+   the groups of the 10,240 tier and up do not fit and the reference's
+   measured-rate rule (`_ckpt_competitive`) sends each to the checkpoint
+   pair while no checkpoint rate is known or while it beats the host rate,
+   else to the host engine; the launch counts set to 0 just before it:
+   phase 11's checks, every CKPT_LOG entry recomputed (check_ckpt_log: the
+   rate's EMA from the logged observations, each decision from the rates
+   it logged), at least one round wholly on the checkpoint route observing
+   the rate, at least one group decided by both measured rates, the
+   checkpoint DP and walk launched with their launch-log ms, the sketch and
+   chain not; the checkpoint rate against the host rate, the decisions by
+   answer, the device share and the wall on a `phase12.ckpt_route` line.
+   A `[wall]` line gives each phase's wall, and a `[total]` line the
+   run's.
 
 Kernel times are CUDA event pairs over TIMED_REPS launches, except the
 walk's, the chain's and the sketch's: theirs are kernel-only, from
@@ -149,7 +168,8 @@ and the kernel's receipt says "timed_by": "profiler, events in some phase".
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, the DP's and walk's also on phase
 7's merge, phase 10's bench build and phase 11's gated build, the four
-alignment kernels' on phase 8's mesh, its worst error
+alignment kernels' on phase 8's mesh and on phase 12's build, with that
+build's launch-log ms, its worst error
 against its plain version, its
 time and its plain version's, and its bound) and the card's name and power
 limit; the last line is
@@ -200,6 +220,11 @@ CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8)]
 # steps all of them through the longest one's rows at once, so its time
 # barely follows their count
 PLAIN_CKPT_WALK_PROBLEMS = 2
+# the shapes at which the pair is held against its plain versions; at
+# (1920, 131072) the plain DP and walk took about 116 s and 92-127 s of
+# each run (PERF.md §6-7), so there the kernels are timed and their events
+# held against the v2 kernels' only
+CKPT_PLAIN_SHAPES = {(128, 65536), (2048, 10240)}
 MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"
@@ -360,24 +385,107 @@ def phase_toolchain(torch) -> dict:
     return info
 
 
+# the host engine's row-loop parity: the jobs of the reference's
+# tests/test_native.py:94, results compared field by field
+ROW_LOOP_SEED = 202
+ROW_LOOP_JOBS = 40
+NATIVE_FIELDS = ("status", "boundary", "n_ops", "n_subs", "lead_ins")
+
+
+def native_mutate(ref, n_sub: int, indels: int, rng):
+    """A query from `ref` with n_sub substitutions and `indels` indels of
+    1-11 bp (the reference's tests/test_native.py recipe)."""
+    q = list(ref)
+    for _ in range(n_sub):
+        i = rng.integers(0, len(q))
+        q[i] = ACGT[rng.integers(0, 4)]
+    for _ in range(indels):
+        i = int(rng.integers(1, max(len(q) - 1, 2)))
+        L = int(rng.integers(1, 12))
+        if rng.random() < 0.5:
+            del q[i : i + L]
+        else:
+            q[i:i] = list(ACGT[rng.integers(0, 4, L)])
+    return np.array(q, np.uint8)
+
+
+def row_loop_jobs() -> tuple:
+    """The reference's 40 row-loop parity jobs (tests/test_native.py:94,
+    seed 202): 10-2,000 bp, N in every sixth reference, bands of 2-59 with
+    mean shifts of -10 to 9. Returns (refs, qrys, ms, W)."""
+    rng = np.random.default_rng(ROW_LOOP_SEED)
+    refs, qrys, mss, Ws = [], [], [], []
+    for trial in range(ROW_LOOP_JOBS):
+        L = int(rng.integers(10, 2000))
+        ref = ACGT[rng.integers(0, 4, L)]
+        if trial % 6 == 0:
+            ii = rng.choice(L, max(1, L // 50), replace=False)
+            ref[ii] = ord("N")
+        refs.append(ref)
+        qrys.append(native_mutate(ref, int(L * 0.04), max(1, L // 200), rng))
+        mss.append(int(rng.integers(-10, 10)))
+        Ws.append(int(rng.integers(2, 60)))
+    return refs, qrys, np.array(mss), np.array(Ws)
+
+
+def native_results_differ(a: dict, b: dict) -> list:
+    """The jobs whose stripe_align_batch_native results differ between two
+    calls: any flag or count, or any of their ops or subs."""
+    if len(a["status"]) != len(b["status"]):
+        raise ValueError("results of different job counts")
+    return [s for s in range(len(a["status"]))
+            if any(a[k][s] != b[k][s] for k in NATIVE_FIELDS)
+            or not np.array_equal(a["ops"][s], b["ops"][s]) or not np.array_equal(a["subs"][s], b["subs"][s])]
+
+
+def native_row_loop() -> str:
+    """The row loop the host engine's default build compiles on this host
+    (native/stripe.cpp:34): "avx512" where g++ -march=native defines
+    __AVX512F__ and __AVX512BW__, else "scalar"."""
+    macros = subprocess.run(["g++", "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+                            capture_output=True, text=True, check=True).stdout.split("\n")
+    have = {line.split()[1] for line in macros if line.startswith("#define ")}
+    return "avx512" if {"__AVX512F__", "__AVX512BW__"} <= have else "scalar"
+
+
 def phase_build() -> None:
+    """The five CUDA kernel libraries and the host engine's default and
+    scalar builds, in parallel; then the host engine's two row loops on the
+    reference's 40 parity jobs (row_loop_jobs), which must agree job for
+    job, with the row loop the default build selected on this host."""
     import concurrent.futures as cf
 
     from pangraph_tpu_torch import native
+    from pangraph_tpu_torch.align.params import BandedAlignParams
+    from pangraph_tpu_torch.graph.seq import IUPAC_MASK
     from pangraph_tpu_torch.ops import cuda_build
 
     t0 = time.time()
-    with cf.ThreadPoolExecutor(max_workers=2) as ex:
+    with cf.ThreadPoolExecutor(max_workers=3) as ex:
         host = ex.submit(native.get_lib)
+        scalar = ex.submit(native.get_scalar_lib)
         kernels = ex.submit(cuda_build.build_all)
         libs = kernels.result()
-        if host.result() is None:
+        if host.result() is None or scalar.result() is None:
             raise RuntimeError("the host C++ engine did not build")
     say("build", seconds=round(time.time() - t0, 3), kernels=sorted(libs))
     for src, log in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say("ptxas", source=src, info=repr(line.strip()))
+    refs, qrys, ms, W = row_loop_jobs()
+    t0 = time.time()
+    default = native.stripe_align_batch_native(refs, qrys, ms, W, BandedAlignParams(), IUPAC_MASK)
+    t1 = time.time()
+    forced = native.stripe_align_batch_native(refs, qrys, ms, W, BandedAlignParams(), IUPAC_MASK,
+                                              lib=scalar.result())
+    t2 = time.time()
+    bad = native_results_differ(default, forced)
+    say("build.row_loops", default_build=native_row_loop(), jobs=len(refs),
+        aligned=int((default["status"] == 0).sum()), differ=json.dumps(bad), default_ms=round((t1 - t0) * 1e3, 3),
+        scalar_ms=round((t2 - t1) * 1e3, 3))
+    if bad:
+        raise AssertionError(f"the host engine's row loops disagree on jobs {bad}")
 
 
 def _mutate(ref, rng, indel_every: int = 400, balanced: bool = False, indel_len: tuple = (1, 9)):
@@ -715,8 +823,8 @@ def _walk_ckpt_parts(torch, sv, args, K: int) -> dict:
 
 
 def phase_ckpt_kernels(torch) -> dict:
-    """The checkpoint pair against its plain versions, and its events
-    against the v2 kernels'."""
+    """The checkpoint pair against its plain versions at CKPT_PLAIN_SHAPES,
+    and its events against the v2 kernels' at every shape."""
     from pangraph_tpu_torch.ops import stripe_v2 as sv
 
     dev = torch.device("cuda", 0)
@@ -728,12 +836,15 @@ def phase_ckpt_kernels(torch) -> dict:
         WV = sv.ckpt_layout(B)
         n_windows = sv.ckpt_windows(R, B)
 
+        plain = (B, R) in CKPT_PLAIN_SHAPES
         ck = sv.stripe_dp_ckpt(*t, B, R)
         dp_ms = _event_ms(torch, lambda: sv.stripe_dp_ckpt(*t, B, R), TIMED_REPS)
-        plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*t, B, R))
-        live = torch.arange(n_windows, device=dev)[None, :] * WV <= t[2][:, None].long()
-        diff = (ck - ck_plain).abs()[live]
-        dp_err = int(diff.max()) if diff.numel() else 0
+        plain_dp_ms = dp_err = plain_walk_ms = walk_err = None
+        if plain:
+            plain_dp_ms, ck_plain = _host_ms(torch, lambda: sv.stripe_dp_ckpt_plain(*t, B, R))
+            live = torch.arange(n_windows, device=dev)[None, :] * WV <= t[2][:, None].long()
+            diff = (ck - ck_plain).abs()[live]
+            dp_err = int(diff.max()) if diff.numel() else 0
 
         sel = _plain_ckpt_problems(arrays[2])
         idx = torch.tensor(sel, device=dev)
@@ -743,9 +854,11 @@ def phase_ckpt_kernels(torch) -> dict:
         sub = [ck[idx].contiguous()] + tsel
         walk_all_ms = _event_ms(torch, lambda: sv.walk_ckpt(ck, *t, WALK_K), TIMED_REPS)
         walk_ms = _event_ms(torch, lambda: sv.walk_ckpt(*sub, WALK_K), TIMED_REPS)
-        plain_walk_ms, out_plain = _host_ms(
-            torch, lambda: sv.walk_ckpt_plain(ck_plain[idx].contiguous(), *tsel, WALK_K))
-        walk_err = _walk_err([x[idx] for x in out], out_plain, n, WALK_K)
+        if plain:
+            plain_walk_ms, out_plain = _host_ms(
+                torch, lambda: sv.walk_ckpt_plain(ck_plain[idx].contiguous(), *tsel, WALK_K))
+            walk_err = _walk_err([x[idx] for x in out], out_plain, n, WALK_K)
+            del ck_plain
         parts = _walk_ckpt_parts(torch, sv, sub, WALK_K)
 
         v2 = sv.walk(sv.stripe_dp(*t, B), *t[2:], sv.walk_segment(R, B), WALK_K)
@@ -753,18 +866,20 @@ def phase_ckpt_kernels(torch) -> dict:
         decoded, exact = _decode_all(sv, arrays, out)
         dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, WALK_K, sel)
 
-        worst["stripe_dp_ckpt"] = max(worst["stripe_dp_ckpt"], dp_err)
-        worst["walk_ckpt"] = max(worst["walk_ckpt"], walk_err)
+        if plain:
+            worst["stripe_dp_ckpt"] = max(worst["stripe_dp_ckpt"], dp_err)
+            worst["walk_ckpt"] = max(worst["walk_ckpt"], walk_err)
         times[(B, R)] = {"stripe_dp_ckpt": (dp_ms, plain_dp_ms, dp_bound),
                          "walk_ckpt": (walk_ms, plain_walk_ms, walk_bound)}
         cells = int(arrays[2].sum()) * B
-        say("ckpt_kernels", B=B, R=R, problems=m, WV=WV, windows=n_windows, cells=cells,
-            dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1), dp_gcells_per_s=round(cells / dp_ms / 1e6, 2),
+        say("ckpt_kernels", B=B, R=R, problems=m, WV=WV, windows=n_windows, cells=cells, held_against_plain=plain,
+            dp_ms=round(dp_ms, 3), plain_dp_ms=plain_dp_ms and round(plain_dp_ms, 1),
+            dp_gcells_per_s=round(cells / dp_ms / 1e6, 2),
             dp_bound_ms=round(dp_bound["bound_ms"], 4), dp_bound_by=dp_bound["bound_by"],
             dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4), dp_binds=dp_bound["binds"],
             dp_cycles_per_row=round(dp_ms * 1e-3 * SM_CLOCK_HZ / int(arrays[2].max())), dp_max_abs_err=dp_err,
-            walk_plain_problems=json.dumps(sel), walk_all_ms=round(walk_all_ms, 3), walk_ms=round(walk_ms, 3),
-            plain_walk_ms=round(plain_walk_ms, 1), walk_waves=parts["waves"],
+            walk_plain_problems=json.dumps(sel if plain else []), walk_all_ms=round(walk_all_ms, 3),
+            walk_ms=round(walk_ms, 3), plain_walk_ms=plain_walk_ms and round(plain_walk_ms, 1), walk_waves=parts["waves"],
             walk_rederive_ms=round(parts["rederive_ms"], 3), walk_walk_ms=round(parts["walk_ms"], 3),
             walk_rederived_windows_at_least=win, walk_reads_at_least=walk_bound["reads"],
             walk_walk_cycles_per_read=round(parts["walk_ms"] * 1e-3 * SM_CLOCK_HZ / max(walk_bound["reads"], 1)),
@@ -774,7 +889,7 @@ def phase_ckpt_kernels(torch) -> dict:
             meta2_differs_from_v2=bnd, decoded=decoded, exact=exact)
         if dp_err or walk_err or bad or exact != decoded:
             raise AssertionError(f"checkpoint kernel disagrees at B={B} R={R}")
-        del ck, ck_plain, v2
+        del ck, v2
         torch.cuda.empty_cache()
     return {"worst": worst, "times": times}
 
@@ -1921,19 +2036,63 @@ def say_gate(phase: str, report: dict, kinds: dict) -> None:
         rounds=json.dumps(kinds), device_cells_frac=report["device_cells_frac"])
 
 
+def ckpt_rule(ckpt_rate, host_rate) -> bool:
+    """The reference's checkpoint-route rule (`_ckpt_competitive`,
+    pangraph_tpu/ops/batch_align.py:608-618) on a healthy device, written
+    again from its source: may a group whose v2 records do not fit take the
+    checkpoint pair?"""
+    if ckpt_rate is None:
+        return True
+    return ckpt_rate > (host_rate or 0.0)
+
+
+def check_ckpt_log(phase: str, log: list, rate_min_cells: int) -> dict:
+    """Every entry of `log` (BatchAligner.CKPT_LOG) recomputed: each
+    observation's rate is the EMA (weight 0.5) of its aligner's
+    observations so far, cells / secs each, from rounds of at least
+    rate_min_cells; each decision read its aligner's EMA as it stood and
+    gave ckpt_rule's answer for the rates it logged. Returns the
+    observations, the decisions, those that both rates decided, and the
+    answers by route."""
+    ema = {}
+    out = {"observed": 0, "decided": 0, "rate_decided": 0, "ckpt": 0, "host": 0}
+    for n, e in enumerate(log):
+        a = e["aligner"]
+        if e["event"] == "observe":
+            if e["cells"] < rate_min_cells or e["secs"] <= 0:
+                raise AssertionError(f"{phase}: entry {n} observed a round it should not have: {e}")
+            obs = e["cells"] / e["secs"]
+            want = obs if a not in ema else 0.5 * ema[a] + 0.5 * obs
+            if e["ckpt_rate"] != want:
+                raise AssertionError(f"{phase}: entry {n}'s checkpoint rate is not the EMA's {want}: {e}")
+            ema[a] = want
+            out["observed"] += 1
+            continue
+        if e["ckpt_rate"] != ema.get(a):
+            raise AssertionError(f"{phase}: entry {n} read a checkpoint rate that is not the EMA's "
+                                 f"{ema.get(a)}: {e}")
+        want = ckpt_rule(e["ckpt_rate"], e["host_rate"])
+        if e["ckpt"] != want:
+            raise AssertionError(f"{phase}: entry {n} answered {e['ckpt']}, the rule gives {want}: {e}")
+        out["decided"] += 1
+        out["rate_decided"] += e["ckpt_rate"] is not None and e["host_rate"] is not None
+        out["ckpt" if want else "host"] += 1
+    return out
+
+
 # phase 11's host-leg budget: the reference's default NATIVE_CELL_BUDGET
 GATED_BUDGET = 100_000_000
 
 
-def phase_gated_path(torch, fa: str) -> dict:
-    """Phase 11: the headline (`fa`) built in this process at
-    NATIVE_CELL_BUDGET = GATED_BUDGET, the reference's default, so that the
-    adaptive split routes every round: build() with BuildArgs(circular=True,
-    jobs=2) and a new BatchAligner on card 0, the launch counts set to 0 just
-    before it. An exact roundtrip, quality within the bench's
-    QUALITY_TOLERANCE, the DP and walk launched with launch-log ms, the
-    checkpoint pair, sketch and chain not, some cells on the device, and
-    every logged round consistent with the gate's rule (check_gate_log)."""
+def _gated_build(torch, phase: str, fa: str, record_budget: int = None) -> dict:
+    """The headline (`fa`) built in this process at NATIVE_CELL_BUDGET =
+    GATED_BUDGET: build() with BuildArgs(circular=True, jobs=2) and a new
+    BatchAligner on card 0 (its record budget set to `record_budget` where
+    given), the launch counts set to 0 just before it and read just after.
+    Checks an exact roundtrip, quality within the bench's
+    QUALITY_TOLERANCE, some cells on the device, and every logged round
+    consistent with the gate's rule (check_gate_log); prints the build's
+    line, its quality, its launch log and its gate line."""
     from pangraph_tpu_torch.align.params import BuildArgs
     from pangraph_tpu_torch.build.build import build, verify_roundtrip
     from pangraph_tpu_torch.commands import graph_quality
@@ -1943,10 +2102,11 @@ def phase_gated_path(torch, fa: str) -> dict:
     from pangraph_tpu_torch.ops import stripe_v2 as sv
     from pangraph_tpu_torch.ops.batch_align import BatchAligner
 
-    phase = "phase11"
     records = read_fasta(fa)
     args = BuildArgs(circular=True, jobs=2)
     aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device="cuda")
+    if record_budget is not None:
+        aligner.budget = record_budget
     saved = BatchAligner.NATIVE_CELL_BUDGET
     BatchAligner.reset_engine_stats()
     for mod in (sv, sk, ch):
@@ -1967,24 +2127,79 @@ def phase_gated_path(torch, fa: str) -> dict:
     log = list(BatchAligner.GATE_LOG)
     verify_roundtrip(graph, records)
     quality = graph_quality(graph)
-    say(phase, native_cell_budget=GATED_BUDGET, wall_s=round(wall, 3), roundtrip="exact",
-        device_cells_frac=report["device_cells_frac"], host_cells=report["host"]["cells"],
+    say(phase, native_cell_budget=GATED_BUDGET, record_budget=aligner.budget, wall_s=round(wall, 3),
+        roundtrip="exact", device_cells_frac=report["device_cells_frac"], host_cells=report["host"]["cells"],
         device_cells=report["device"]["cells"], gated_rounds=len(log), launches=json.dumps(launches))
     say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in reference_quality().items()})
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log)
     kinds = check_gate_log(phase, log, gate_settings(BatchAligner))
     say_gate(f"{phase}.gate", report, kinds)
-    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
-                       "sketch": False, "chain": False}.items():
+    if report["device"]["cells"] <= 0:
+        raise AssertionError(f"{phase}: no cells ran on the device: {report['device']}")
+    check_quality(phase, quality)
+    return {"launches": launches, "report": report, "wall_s": wall, "kinds": kinds, "kernels": kernel_log}
+
+
+def check_launched(phase: str, launches: dict, kernel_log: dict, want: dict) -> None:
+    """want[name] True: the kernel launched and its launches are in the
+    launch log; False: it never launched."""
+    for name, must in want.items():
         if must and (launches[name] <= 0 or name not in kernel_log):
             raise AssertionError(f"{phase}: kernel {name} was not launched and timed: {launches}")
         if not must and launches[name] != 0:
             raise AssertionError(f"{phase}: kernel {name} was launched off its path: {launches}")
-    if report["device"]["cells"] <= 0:
-        raise AssertionError(f"{phase}: no cells ran on the device: {report['device']}")
-    check_quality(phase, quality)
-    return {"launches": launches, "report": report, "wall_s": wall, "kinds": kinds}
+
+
+def phase_gated_path(torch, fa: str) -> dict:
+    """Phase 11: the headline built at the reference's default host-leg
+    budget, so that the adaptive split routes every round (_gated_build):
+    the DP and walk launched with launch-log ms, the checkpoint pair,
+    sketch and chain not."""
+    out = _gated_build(torch, "phase11", fa)
+    check_launched("phase11", out["launches"], out["kernels"],
+                   {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                    "sketch": False, "chain": False})
+    return out
+
+
+# phase 12's record budget: under 4 * 8 * 10,240 * 128 * 2 bytes, so that
+# the v2 records of a minimum group of 8 problems (R_cap * B * 2 bytes each)
+# pass a launch's quarter of it from the 10,240 tier at B 128 up, and the
+# 4,096 tier's at B 384 and up: those groups reach the measured-rate rule
+CKPT_ROUTE_RECORD_BUDGET = 4 * 8 * 10240 * 128 * 2 - 4
+
+
+def phase_ckpt_route(torch, fa: str, record_budget: int = CKPT_ROUTE_RECORD_BUDGET) -> dict:
+    """Phase 12: the headline built as in phase 11 (_gated_build), with the
+    aligner's record budget set to `record_budget`, so that the long tiers'
+    groups do not fit and the reference's measured-rate rule sends each
+    to the checkpoint pair or to the host engine. Every CKPT_LOG entry is
+    recomputed (check_ckpt_log); at least one round wholly on the
+    checkpoint route must observe the checkpoint rate, at least one later
+    group must be decided by both measured rates, and the checkpoint DP and
+    walk must launch, with their launch-log ms; the sketch and chain must
+    not. Prints the checkpoint rate against the host rate, the decisions
+    by answer, the device share and the wall."""
+    from pangraph_tpu_torch.ops.batch_align import BatchAligner
+
+    phase = "phase12"
+    out = _gated_build(torch, phase, fa, record_budget)
+    counts = check_ckpt_log(phase, list(BatchAligner.CKPT_LOG), BatchAligner.RATE_MIN_CELLS)
+    g = out["report"]["gate"]
+    gcells = {k: None if g[k] is None else round(g[k] / 1e9, 4) for k in ("ckpt_rate", "host_rate")}
+    say(f"{phase}.ckpt_route", ckpt_gcells_per_s=gcells["ckpt_rate"], h_gcells_per_s=gcells["host_rate"],
+        ckpt_over_h=None if None in gcells.values() else round(g["ckpt_rate"] / g["host_rate"], 4),
+        observed=counts["observed"], decided=counts["decided"], rate_decided=counts["rate_decided"],
+        to_ckpt=counts["ckpt"], to_host=counts["host"], device_cells_frac=out["report"]["device_cells_frac"],
+        device_routes=json.dumps(out["report"]["device_routes"]), wall_s=round(out["wall_s"], 3))
+    if counts["observed"] < 1:
+        raise AssertionError(f"{phase}: no round wholly on the checkpoint route observed its rate: {counts}")
+    if counts["rate_decided"] < 1:
+        raise AssertionError(f"{phase}: no group was decided by the two measured rates: {counts}")
+    check_launched(phase, out["launches"], out["kernels"],
+                   {"stripe_dp_ckpt": True, "walk_ckpt": True, "sketch": False, "chain": False})
+    return {**out, "ckpt": counts}
 
 
 KERNEL_FILES = {
@@ -2010,14 +2225,16 @@ def _timed_by(name: str) -> str:
 
 
 def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
-             cli_path: dict, mesh_path: dict, bench: dict, gated: dict) -> dict:
+             cli_path: dict, mesh_path: dict, bench: dict, gated: dict, route: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
     the headline's default path, on phase 7's merge as `merge_launches`,
     on phase 10's bench build as `bench_launches` and on phase 11's gated
     build as `gated_launches`; the checkpoint pair
     on the long-tier path, the sketch
     and chain on phase 6; the four alignment kernels on phase 8's mesh as
-    `mesh_launches`), worst error against its plain version
+    `mesh_launches` and on phase 12's build as `ckpt_route_launches`, with
+    that build's launch-log ms as `ckpt_route_device_ms`), worst error
+    against its plain version
     over every shape it was held at, and its times and bound at one shape
     where both were timed (for the sketch and chain, phase 6's own; the two
     DP modes and the chain also carry their dependency bound and which bound
@@ -2045,6 +2262,8 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         })
         if "dep_bound_ms" in bound:
             rows[-1].update(dep_bound_ms=bound["dep_bound_ms"], binds=bound["binds"])
+        rows[-1]["ckpt_route_launches"] = route["launches"][name]
+        rows[-1]["ckpt_route_device_ms"] = round(route["kernels"].get(name, {"ms": 0.0})["ms"], 3)
         if path is main_path:
             rows[-1]["merge_launches"] = cli_path["launches"][name]
             rows[-1]["bench_launches"] = bench["launches"][name]
@@ -2089,29 +2308,37 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
     v2 = {"stripe_dp": True, "walk": True, "sketch": False, "chain": False}
+
+    def timed(name: str, fn, *a, **k):
+        """Run one phase and print its wall on a line of its own."""
+        t0 = time.time()
+        out = fn(*a, **k)
+        say("wall", of=name, wall_s=round(time.time() - t0, 3))
+        return out
+
     try:
-        info = phase_toolchain(torch)
-        phase_build()
-        kern = phase_kernels(torch)
-        ckpt = phase_ckpt_kernels(torch)
-        phase_mbp(torch)
-        sc = phase_sketch_chain_kernels(torch)
+        info = timed("toolchain", phase_toolchain, torch)
+        timed("build", phase_build)
+        kern = timed("kernels", phase_kernels, torch)
+        ckpt = timed("ckpt_kernels", phase_ckpt_kernels, torch)
+        timed("mbp", phase_mbp, torch)
+        sc = timed("sketch_chain_kernels", phase_sketch_chain_kernels, torch)
         with tempfile.TemporaryDirectory() as tmp:
             fa = os.path.join(tmp, "headline.fa")
-            t0 = time.time()
-            say("headline", input_bp=headline_fasta(fa), setup_s=round(time.time() - t0, 1))
+            timed("headline", lambda: say("headline", input_bp=headline_fasta(fa)))
             graph = os.path.join(tmp, "headline.json")
-            main_path = phase_build_path(torch, "main_path", fa, {},
-                                         {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False}, profile=True,
-                                         out=graph)
-            long_tier = phase_build_path(torch, "long_tier", fa, {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
-                                         {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
-            sc_path = phase_sketch_chain_path(torch, fa)
-            cli_path = phase_cli_path(torch, fa, graph, tmp, main_path["quality"])
-            mesh_path = phase_mesh_path(torch, fa, graph, main_path["report"], tmp)
-            phase_cluster(torch, tmp)
-            bench = phase_bench(torch)
-            gated = phase_gated_path(torch, fa)
+            main_path = timed("main_path", phase_build_path, torch, "main_path", fa, {},
+                              {**v2, "stripe_dp_ckpt": False, "walk_ckpt": False}, profile=True, out=graph)
+            long_tier = timed("long_tier", phase_build_path, torch, "long_tier", fa,
+                              {"PANGRAPH_TPU_CKPT_BYTES": CKPT_OVERRIDE_BYTES},
+                              {**v2, "stripe_dp_ckpt": True, "walk_ckpt": True})
+            sc_path = timed("sketch_chain_path", phase_sketch_chain_path, torch, fa)
+            cli_path = timed("cli_path", phase_cli_path, torch, fa, graph, tmp, main_path["quality"])
+            mesh_path = timed("mesh_path", phase_mesh_path, torch, fa, graph, main_path["report"], tmp)
+            timed("cluster", phase_cluster, torch, tmp)
+            bench = timed("bench", phase_bench, torch)
+            gated = timed("phase11", phase_gated_path, torch, fa)
+            route = timed("phase12", phase_ckpt_route, torch, fa)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
@@ -2120,7 +2347,8 @@ def main() -> int:
         return 1
     say("total", wall_s=round(time.time() - t_start, 3))
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench, gated)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench, gated,
+                              route)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -50,17 +50,20 @@ def _arena_i64(n: int) -> np.ndarray:
     return _arena_buf("i64", n, np.int64)
 
 
-def _build_and_load():
+def _build_and_load(force_scalar: bool = False):
     srcs = [os.path.join(_HERE, f) for f in ("chain.cpp", "stripe.cpp", "sketch.cpp", "index.cpp")]
     h = hashlib.blake2b(digest_size=8)
     for src in srcs:
         with open(src, "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"_native_{h.hexdigest()}.so")
+    tag = "_scalar" if force_scalar else ""
+    so = os.path.join(BUILD_DIR, f"_native_{h.hexdigest()}{tag}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = so + f".tmp{os.getpid()}"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-o", tmp, *srcs]
+        if force_scalar:
+            cmd.insert(1, "-DSTRIPE_FORCE_SCALAR")
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, so)
     return ctypes.CDLL(so)
@@ -73,22 +76,43 @@ def _bind(lib):
     lib.sketch_native.restype = ctypes.c_int64
     lib.index_build_native.restype = ctypes.c_int64
     lib.anchors_all_native.restype = ctypes.c_int64
+    lib.backtrace_band.restype = ctypes.c_int
     return lib
 
 
 def get_lib():
-    """The loaded native library, or None if unavailable."""
+    """The loaded native library, or None if unavailable.
+    PANGRAPH_TPU_FORCE_SCALAR=1 selects the scalar (non-AVX-512) build."""
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     with _LOCK:
         if _LIB is None and not _TRIED:
             try:
-                _LIB = _bind(_build_and_load())
+                _LIB = _bind(_build_and_load(force_scalar=bool(os.environ.get("PANGRAPH_TPU_FORCE_SCALAR"))))
             except Exception as e:  # pragma: no cover
                 log.warning("native library unavailable, using numpy fallbacks: %s", e)
             _TRIED = True
     return _LIB
+
+
+_SCALAR_LIB = None
+
+
+def get_scalar_lib():
+    """The -DSTRIPE_FORCE_SCALAR build (native/stripe.cpp's scalar row
+    loop), for parity checks against the default build's. Returns None
+    when the toolchain is unavailable."""
+    global _SCALAR_LIB
+    if _SCALAR_LIB is None:
+        with _LOCK:
+            if _SCALAR_LIB is None:
+                try:
+                    _SCALAR_LIB = _bind(_build_and_load(force_scalar=True))
+                except Exception as e:  # pragma: no cover
+                    log.warning("scalar native build unavailable: %s", e)
+                    return None
+    return _SCALAR_LIB
 
 
 def chain_dp_native(rpos: np.ndarray, qpos: np.ndarray, k: int, max_gap: int, bw: int, window: int):
@@ -137,6 +161,47 @@ def chain_extract_native(f: np.ndarray, parent: np.ndarray, min_score: int, min_
     return out_idx, out_len[:n_chains], out_score[:n_chains]
 
 
+def backtrace_band_native(paths: np.ndarray, ref: np.ndarray, qry: np.ndarray, ms: int, W: int, B: int, clamped: bool):
+    """C++ banded traceback over int8 path bits [rows, B] (native/chain.cpp
+    `backtrace_band`). Returns (rc, ops, n_ops, subs, n_subs, lead_ins,
+    hit_boundary), rc 0 ok, 1 boundary retry, 2 overflow; None if the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    max_ops = 65536
+    max_subs = 262144
+    ops = np.zeros(max_ops * 2, dtype=np.int32)
+    subs = np.zeros(max_subs * 2, dtype=np.int64)
+    n_ops = ctypes.c_int64(0)
+    n_subs = ctypes.c_int64(0)
+    lead = ctypes.c_int64(0)
+    hb = ctypes.c_int(0)
+    paths = np.ascontiguousarray(paths, dtype=np.int8)
+    ref = np.ascontiguousarray(ref, dtype=np.uint8)
+    qry = np.ascontiguousarray(qry, dtype=np.uint8)
+    rc = lib.backtrace_band(
+        paths.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int64(B),
+        ref.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(len(ref)),
+        qry.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(len(qry)),
+        ctypes.c_int64(ms),
+        ctypes.c_int64(W),
+        ctypes.c_int(1 if clamped else 0),
+        ops.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(max_ops),
+        ctypes.byref(n_ops),
+        subs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(max_subs),
+        ctypes.byref(n_subs),
+        ctypes.byref(lead),
+        ctypes.byref(hb),
+    )
+    return rc, ops, int(n_ops.value), subs, int(n_subs.value), int(lead.value), bool(hb.value)
+
+
 def stripe_align_batch_native(
     refs: list,
     qrys: list,
@@ -156,7 +221,7 @@ def stripe_align_batch_native(
     dict of flat result arrays (ops, n_ops, subs, n_subs, lead_ins, boundary,
     status) or None if the native library is unavailable. status per job:
     0 ok, 1 boundary-retry, 2 overflow, 3 paths over budget. `lib` overrides
-    the default library."""
+    the default library (get_scalar_lib() for the scalar row loop)."""
     lib = lib or get_lib()
     if lib is None:
         return None

@@ -11,9 +11,10 @@ Every job the kernels can take runs on the device unless the round's host
 leg takes it; the host C++ engine (native/stripe.cpp) takes the jobs the
 kernels cannot: bands past the widest kernel band that the host can still
 widen, jobs past the largest length tier or whose end corner lies outside
-the widest band, event-dense jobs of the checkpoint route, dead walks
-without a boundary hit, and jobs whose retries ran out. With device=None
-every job runs on the host engine.
+the widest band, event-dense jobs of the checkpoint route, groups whose
+records do not fit while the checkpoint pair is measured slower than the
+host engine, dead walks without a boundary hit, and jobs whose retries ran
+out. With device=None every job runs on the host engine.
 
 The host leg takes the round's smallest jobs up to a budget of DP cells.
 At NATIVE_CELL_BUDGET 0 (the default) it takes none. Above 0 the budget is
@@ -46,11 +47,15 @@ never depend on which legs met.
 A (tier, band) group runs on one of two kernel routes: the stripe DP and
 its walk over full records, or the checkpoint pair (stripe_dp_ckpt +
 walk_ckpt), which holds only window-start carries. A group takes the
-checkpoint route when its records would not fit (v2 records of a minimum
-group of 8 problems over a launch's share of the budget), or when the
-reference's explicit override says so: its per-problem record bytes
-R_cap * (B + 128) * 2 over `ckpt_paths_bytes` (by default the
-PANGRAPH_TPU_CKPT_BYTES environment variable, as in the reference).
+checkpoint route when the reference's explicit override says so: its
+per-problem record bytes R_cap * (B + 128) * 2 over `ckpt_paths_bytes` (by
+default the PANGRAPH_TPU_CKPT_BYTES environment variable, as in the
+reference). A group whose records would not fit (v2 records of a minimum
+group of 8 problems over a launch's share of the budget) takes it while the
+reference's measured-rate rule says so (`_ckpt_competitive`): until a
+checkpoint rate is known, then while it beats the host rate; otherwise its
+jobs go to the host engine. The checkpoint rate is observed from combined
+rounds whose every launch is on the checkpoint route (`_observe_ckpt`).
 
 With a mesh (parallel/mesh.py), each planned launch is split over the
 mesh's shards after planning, interleaved (`shard_jobs`): every shard's
@@ -121,16 +126,21 @@ class _BrokerTicket:
 
 
 class _RoundClock:
-    """A combined round's device-rate observation: the round's wall, then
-    each leg's decode added as the leg ends; observed when the last one
-    has."""
+    """A combined round's rate observations: the round's wall, then each
+    leg's seconds added as the leg ends; observed when the last one has.
+    `secs` (the device rate's) takes each leg's decode and its wait for
+    its host threads, `ckpt_secs` (the checkpoint rate's) the decode alone;
+    `ckpt_cells` is None unless every launch of the round was on the
+    checkpoint route."""
 
-    __slots__ = ("secs", "cells", "legs")
+    __slots__ = ("secs", "cells", "legs", "ckpt_cells", "ckpt_secs")
 
-    def __init__(self, secs: float, cells: int, legs: int):
+    def __init__(self, secs: float, cells: int, legs: int, ckpt_cells: int = None):
         self.secs = secs
         self.cells = cells
         self.legs = legs
+        self.ckpt_cells = ckpt_cells
+        self.ckpt_secs = secs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -242,8 +252,12 @@ class BatchAligner:
     # cells of the bands past the clamp that the host took beyond fill;
     # host, dev) and the round's kind (engine_report()["gate"]["rounds"])
     GATE_LOG = []
+    # one dict per checkpoint-route decision on a group whose records do not
+    # fit ("decide": tier, band, both rates read and the answer) and per
+    # checkpoint-rate observation ("observe": cells, seconds, the EMA after)
+    CKPT_LOG = []
     # the rates and overhead of the aligner that last gated or observed one
-    _LAST_GATE = {"host_rate": None, "dev_rate": None, "dev_latency_s": None}
+    _LAST_GATE = {"host_rate": None, "dev_rate": None, "ckpt_rate": None, "dev_latency_s": None}
 
     # per-engine DP-cell accounting: engine -> [cells, warm_cells, warm_secs].
     # No engine compiles inside a round here, so every cell is warm; the
@@ -285,13 +299,15 @@ class BatchAligner:
         if self.device is not None and self.device.type == "cuda" and type(self).MEASURED_RTT is None:
             type(self).MEASURED_RTT = self._round_trip_s(self.mesh.devices[0])
         # the adaptive split's state (reference: TpuBatchAligner.__init__):
-        # each engine's rate EMA (cells/s), the device's overhead floor, the
-        # gated rounds since the device rate was last observed, the probe
-        # slice's period (8, doubling to 64 while the gate stays closed), and
-        # whether a probe leg is in flight; _gate_lock orders the gate's
-        # decisions and the observations
+        # each engine's rate EMA (cells/s) and the checkpoint pair's, the
+        # device's overhead floor, the gated rounds since the device rate was
+        # last observed, the probe slice's period (8, doubling to 64 while
+        # the gate stays closed), and whether a probe leg is in flight;
+        # _gate_lock orders the gate's and the checkpoint route's decisions
+        # and the observations
         self._host_rate = None
         self._dev_rate = None
+        self._ckpt_rate = None
         self._dev_lat = self.DEV_LATENCY_S
         self._dev_starved = 0
         self._probe_period = 8
@@ -461,9 +477,9 @@ class BatchAligner:
         with cls._ENGINE_LOCK:
             out["device_shards"] = {k: {"launches": n, "cells": c} for k, (n, c) in sorted(cls.SHARDS.items())}
             kinds = [e.get("kind") for e in cls.GATE_LOG]
-        # the adaptive split: the rates and overhead of the aligner that last
-        # gated or observed, the overhead's floor and the measured round trip,
-        # and the gated rounds by kind
+        # the adaptive split: the rates (the checkpoint pair's too) and
+        # overhead of the aligner that last gated or observed, the overhead's
+        # floor and the measured round trip, and the gated rounds by kind
         out["gate"] = {**cls._LAST_GATE, "dev_latency_floor_s": cls.DEV_LATENCY_S,
                        "measured_rtt_s": cls.MEASURED_RTT,
                        "rounds": {k: kinds.count(k) for k in cls.GATE_KINDS if k in kinds}}
@@ -484,6 +500,7 @@ class BatchAligner:
             cls.STATS.clear()
             cls.SHARDS.clear()
             cls.GATE_LOG.clear()
+            cls.CKPT_LOG.clear()
 
     # ------------------------------------------------------------ rounds
 
@@ -524,7 +541,7 @@ class BatchAligner:
 
     def _note_rates(self) -> None:
         type(self)._LAST_GATE = {"host_rate": self._host_rate, "dev_rate": self._dev_rate,
-                                 "dev_latency_s": self._effective_dev_lat()}
+                                 "ckpt_rate": self._ckpt_rate, "dev_latency_s": self._effective_dev_lat()}
 
     def _observe_rate(self, which: str, cells: int, secs: float) -> None:
         """`cells` DP cells in `secs` by the host engine ("host") or the
@@ -552,6 +569,42 @@ class BatchAligner:
             if which == "dev":
                 self._dev_starved = 0
             self._note_rates()
+
+    def _observe_ckpt(self, cells: int, secs: float) -> None:
+        """A combined round whose every launch was on the checkpoint route
+        ran `cells` DP cells (at its launches' working bands) in `secs`: the
+        checkpoint rate's EMA takes half the last estimate and half
+        cells / secs, with no overhead taken off (reference
+        `_run_round_v2`, :1220-1222). Rounds under RATE_MIN_CELLS say
+        nothing."""
+        if cells < self.RATE_MIN_CELLS or secs <= 0:
+            return
+        with self._gate_lock:
+            obs = cells / secs
+            prev = self._ckpt_rate
+            self._ckpt_rate = obs if prev is None else 0.5 * prev + 0.5 * obs
+            self._note_rates()
+            with self._ENGINE_LOCK:
+                self.CKPT_LOG.append({"aligner": id(self), "event": "observe", "cells": cells, "secs": secs,
+                                      "ckpt_rate": self._ckpt_rate})
+
+    def _ckpt_competitive(self, R_cap: int = None, B: int = None) -> bool:
+        """Does a group whose v2 records do not fit (of tier R_cap and band
+        B) take the checkpoint pair? The reference's rule
+        (`_ckpt_competitive`): yes while no checkpoint rate is known (the
+        first such round is the probe), then while the checkpoint rate
+        beats the host rate (or 0 where none is known). The reference also
+        answers no on an unhealthy or non-TPU device; the port has no
+        quarantine, and its counterpart of a healthy TPU is the kernel
+        route the caller asked for (device "cuda", or "cpu" for the plain
+        versions), so only the rates decide. Logged in CKPT_LOG."""
+        with self._gate_lock:
+            ck, h = self._ckpt_rate, self._host_rate
+            use = ck is None or ck > (h or 0.0)
+            with self._ENGINE_LOCK:
+                self.CKPT_LOG.append({"aligner": id(self), "event": "decide", "R_cap": R_cap, "B": B,
+                                      "ckpt_rate": ck, "host_rate": h, "ckpt": use})
+        return use
 
     def _effective_dev_lat(self) -> float:
         """The device's modeled per-round overhead: the floor, raised to the
@@ -823,6 +876,11 @@ class BatchAligner:
         planned = []
         for (R_cap, B), idxs in groups.items():
             ckpt = self._use_ckpt(R_cap, B, self.budget // 4)
+            if ckpt is None:
+                # records that do not fit, and the checkpoint pair is slower
+                # than the host engine: the reference's host path
+                fallback_idx.extend(idxs)
+                continue
             M = self._launch_cap(R_cap, B, ckpt)
             idxs = sorted(idxs, key=lambda i: -len(jobs[i].ref))
             for c0 in range(0, len(idxs), M):
@@ -849,13 +907,19 @@ class BatchAligner:
                 planned.append((sub, R_cap, B, K, ckpt))
         return planned, fallback_idx
 
-    def _use_ckpt(self, R_cap: int, B: int, batch_bytes: int) -> bool:
-        """Does a (tier, band) group take the checkpoint route? Yes past the
-        reference's override, compared on the reference's per-problem record
-        bytes (window coordinates, B + 128 lanes) so that one value routes
-        the same tiers in both packages; and when v2 records of a minimum
-        group of 8 problems do not fit a launch's share."""
-        return R_cap * (B + DP_C) * 2 > self.ckpt_paths_bytes or 8 * R_cap * B * 2 > batch_bytes
+    def _use_ckpt(self, R_cap: int, B: int, batch_bytes: int):
+        """Which route does a (tier, band) group take? The checkpoint route
+        (True) past the reference's override, compared on the reference's
+        per-problem record bytes (window coordinates, B + 128 lanes) so that
+        one value routes the same tiers in both packages. Where v2 records
+        of a minimum group of 8 problems do not fit a launch's share, the
+        checkpoint route while `_ckpt_competitive` says so, else None: the
+        host engine. Otherwise the v2 route (False)."""
+        if R_cap * (B + DP_C) * 2 > self.ckpt_paths_bytes:
+            return True
+        if 8 * R_cap * B * 2 > batch_bytes:
+            return True if self._ckpt_competitive(R_cap, B) else None
+        return False
 
     def _run_round_device(self, jobs: list, widths: list, kbumps: list):
         """Start a device leg: plan its launches in the calling thread (so
@@ -868,8 +932,10 @@ class BatchAligner:
         planned on the device, at the kernels' band (B - 2) // 2, as the
         reference counts a probe leg's. Where the adaptive split routes
         (gated()), the seconds collect() takes after the round join the
-        round's device-rate observation (_leg_decoded); elsewhere nothing is
-        observed and cells is 0."""
+        round's device-rate observation (_leg_decoded); elsewhere no device
+        rate is observed and cells is 0. Where every launch of the combined
+        round was on the checkpoint route, the decode's seconds join its
+        checkpoint-rate observation, at any budget."""
         n = len(jobs)
         edits = [None] * n
         boundary = [False] * n
@@ -890,10 +956,11 @@ class BatchAligner:
                     fetched = ticket.result()
                     t_dec = time.time()
                     self._decode(jobs, fetched, edits, boundary, overflow)
+                    decode_s = time.time() - t_dec
                 for i, f in fb_futs.items():
                     edits[i] = f.result()
                 if ticket is not None and ticket.round is not None:
-                    self._leg_decoded(ticket.round, time.time() - t_dec)
+                    self._leg_decoded(ticket.round, time.time() - t_dec, decode_s)
             finally:
                 if fb_pool is not None:
                     fb_pool.shutdown(wait=True)
@@ -903,22 +970,31 @@ class BatchAligner:
             return collect, 0
         return collect, sum(self._job_cells(jobs[i], (B - 2) // 2) for sub, _R, B, _K, _c in planned for i in sub)
 
-    def _leg_decoded(self, clock: _RoundClock, secs: float) -> None:
-        """A leg of a combined round has decoded its events and collected its
-        host threads' Edits in `secs`. The round's last leg observes the
-        device rate: the legs' cells (at their working bands) over the
-        round's wall plus every leg's seconds. The reference's broker times
-        one call that runs the round, decodes every leg in turn and waits
-        for the host threads; here the legs decode in their own threads, so
-        their seconds are added to the round's. Once per combined round.
-        No kernel compiles inside a round here, so every round is warm (the
-        reference observes warm rounds only)."""
+    def _leg_decoded(self, clock: _RoundClock, secs: float, decode_secs: float) -> None:
+        """A leg of a combined round has decoded its events in `decode_secs`
+        and collected its host threads' Edits in `secs` all told. The
+        round's last leg observes the device rate (where the split routes):
+        the legs' cells (at their working widths) over the round's wall plus
+        every leg's seconds. The reference's broker times one call that runs
+        the round, decodes every leg in turn and waits for the host threads;
+        here the legs decode in their own threads, so their seconds are
+        added to the round's. Where every launch was on the checkpoint
+        route, it also observes the checkpoint rate: the round's device
+        cells over its wall plus every leg's decode, the host threads left
+        out, as the reference leaves its host-fallback jobs out
+        (:1223-1226). Once per combined round. No kernel compiles inside a
+        round here, so every round is warm (the reference observes warm
+        rounds only)."""
         with self._broker_lock:
             clock.secs += secs
+            clock.ckpt_secs += decode_secs
             clock.legs -= 1
             last = clock.legs == 0
         if last:
-            self._observe_rate("dev", clock.cells, clock.secs)
+            if clock.cells:
+                self._observe_rate("dev", clock.cells, clock.secs)
+            if clock.ckpt_cells is not None:
+                self._observe_ckpt(clock.ckpt_cells, clock.ckpt_secs)
 
     # ------------------------------------------------------------ broker
 
@@ -938,8 +1014,9 @@ class BatchAligner:
     def _broker_loop(self) -> None:
         """The broker thread: take the queued legs (after a lone one, wait
         BROKER_GATHER_S for others), run them as one combined round, hand
-        each ticket its fetched events and, where the adaptive split routes,
-        the round's clock (_RoundClock: the round's wall, _run_combined's);
+        each ticket its fetched events and, where the adaptive split routes
+        or every launch was on the checkpoint route, the round's clock
+        (_RoundClock: the round's wall, _run_combined's);
         stand down after BROKER_IDLE_S
         idle. Every ticket is completed, with the exception where one was
         raised, so no leg waits forever."""
@@ -963,10 +1040,11 @@ class BatchAligner:
                         self._broker_queue = []
                 try:
                     t_round = time.time()
-                    outs = self._run_combined(batch)
+                    outs, ckpt_cells = self._run_combined(batch)
                     clock = None
-                    if self.gated():
-                        clock = _RoundClock(time.time() - t_round, sum(c for _j, _p, c, _tk in batch), len(batch))
+                    if self.gated() or ckpt_cells is not None:
+                        clock = _RoundClock(time.time() - t_round, sum(c for _j, _p, c, _tk in batch), len(batch),
+                                            ckpt_cells)
                     for (*_, tk), out in zip(batch, outs):
                         tk.out, tk.round = out, clock
                 except BaseException as ex:
@@ -990,7 +1068,9 @@ class BatchAligner:
         cells, ticket)]): the legs' planned launches with equal (R_cap, B, K,
         route) merged, longest problems first, and split again at the
         memory rule's count (_launch_cap); run and fetched by _run_planned.
-        Returns per leg [(job indices, K, fetched arrays of those jobs)]."""
+        Returns (per leg [(job indices, K, fetched arrays of those jobs)],
+        the round's device cells where every launch was on the checkpoint
+        route, else None)."""
         merged = {}
         for leg, (jobs, planned, _cells, _tk) in enumerate(batch):
             for sub, R_cap, B, K, ckpt in planned:
@@ -1023,7 +1103,7 @@ class BatchAligner:
                 by_leg[leg][1].append(p)
             for leg, (idx, pos) in by_leg.items():
                 outs[leg].append((idx, K, {k: v[pos] for k, v in out.items()}))
-        return outs
+        return outs, (dev_cells if all(route == "ckpt" for route, _R, _B in groups) else None)
 
     def _stream_scope(self, shard: int):
         """The broker launches each shard on a CUDA stream of its own, so

@@ -21,7 +21,17 @@ port's run the plain versions.
 
 Also: chip_smoke's recomputation of the gate (check_gate_log) against a
 gated run's log, and the reference's checkpoint-route rate rule
-(`_ckpt_competitive`), which the port does not have."""
+(`_ckpt_competitive`), held against the port's:
+
+(h) A group whose records do not fit takes the same route in both packages
+    in six rate states, and the explicit override takes it whatever the
+    rates.
+(i) A sequence of rounds wholly on the checkpoint route gives the
+    reference's checkpoint-rate EMA, a round under RATE_MIN_CELLS none;
+    the round's host-fallback jobs stay outside it.
+(j) A round with checkpoint and v2 launches observes no checkpoint rate.
+(k) A checkpoint launch that raises makes align_many raise, as in (e).
+(l) chip_smoke's recomputation of the checkpoint-route log."""
 from __future__ import annotations
 
 import threading
@@ -609,5 +619,295 @@ def test_reference_ckpt_route_follows_its_measured_rate(monkeypatch):
     assert not ref._ckpt_competitive()
     ref._host_rate = ref._ckpt_rate / 2
     assert ref._ckpt_competitive()
-    port = _port(0, _host_rate=1e12)
-    assert port._use_ckpt(131072, 128, 8 * 131072 * 128 * 2 - 1)
+    port = _port(0)
+    for _name, ck, h, explicit, _want in CKPT_STATES:
+        ref._ckpt_rate, ref._host_rate = port._ckpt_rate, port._host_rate = ck, h
+        port.ckpt_paths_bytes = 0 if explicit else 10**18
+        answer = explicit or ref._ckpt_competitive()
+        assert port._ckpt_competitive() == ref._ckpt_competitive()
+        assert port._use_ckpt(131072, 128, 8 * 131072 * 128 * 2 - 1) is (True if answer else None)
+
+
+# (h)-(l): name, checkpoint rate, host rate, the explicit override, and
+# whether the group takes the checkpoint route
+CKPT_STATES = [
+    ("no-ckpt-rate", None, 1e9, False, True),
+    ("ckpt-above-host", 2e9, 1e9, False, True),
+    ("ckpt-below-host", 1e9, 2e9, False, False),
+    ("ckpt-equals-host", 1e9, 1e9, False, False),
+    ("no-host-rate", 1e9, None, False, True),
+    ("override-below-host", 1e9, 2e9, True, True),
+]
+# records that do not fit: the reference's v2 records of a minimum group of 8
+# problems at (4096, 128), 8 * 4096 * 256 * 2 bytes, over half its HBM_BUDGET,
+# and the port's, 8 * 4096 * 128 * 2, over a quarter of its record budget
+REF_HBM_BUDGET = 8 << 20
+PORT_RECORD_BUDGET = 16 << 20
+
+
+def _ref_ckpt(ck=None, h=None, explicit=False) -> TpuBatchAligner:
+    ref = TpuBatchAligner(RefParams())
+    ref.HBM_BUDGET = REF_HBM_BUDGET
+    ref.CKPT_PATHS_BYTES = 0 if explicit else 10**18
+    ref._SHAPES_WARM = _AllWarm()
+    ref._ckpt_rate, ref._host_rate = ck, h
+    return ref
+
+
+def _port_ckpt(ck=None, h=None, explicit=False, budget=0) -> BatchAligner:
+    port = _port(budget, _ckpt_rate=ck, _host_rate=h)
+    port.budget = PORT_RECORD_BUDGET
+    port.ckpt_paths_bytes = 0 if explicit else 10**18
+    return port
+
+
+def _ref_routes(monkeypatch, ref, jobs, widths) -> dict:
+    """One reference round (_run_round_v2) with its launches faked: the
+    jobs it planned on each route and the ones it sent to the host."""
+    routes = {"ckpt": set(), "v2": set(), "host": set()}
+
+    def planned(self, r_jobs, planned, edits, boundary, overflow, fb_futs, count=True):
+        for sub, *_, ck in planned:
+            routes["v2" if ck is None else "ckpt"].update(sub)
+        routes["host"].update(fb_futs or ())
+        return edits, boundary, overflow
+
+    monkeypatch.setattr(TpuBatchAligner, "_run_planned", planned)
+    ref._run_round_v2(jobs, widths, [1] * len(jobs))
+    return routes
+
+
+@pytest.mark.parametrize("name,ck,h,explicit,want", CKPT_STATES, ids=[s[0] for s in CKPT_STATES])
+def test_ckpt_route_decision_matches_the_reference(monkeypatch, name, ck, h, explicit, want):
+    """(h) One round of four (4096, 128) jobs whose records do not fit, in
+    one state of the two rates: the port plans each job on the route the
+    reference plans it on (the checkpoint pair, or the host engine when the
+    pair is measured slower), and logs the decision with both rates; past
+    the explicit override nothing is decided."""
+    pairs = _pairs(4)
+    widths = [13] * len(pairs)
+    ref_routes = _ref_routes(monkeypatch, _ref_ckpt(ck, h, explicit), _ref_jobs(pairs), widths)
+    port = _port_ckpt(ck, h, explicit)
+    planned, fallback = port._plan(_port_jobs(pairs), widths, [1] * len(pairs))
+    port_routes = {"ckpt": set(), "v2": set(), "host": set(fallback)}
+    for sub, _R, _B, _K, ckpt in planned:
+        port_routes["ckpt" if ckpt else "v2"].update(sub)
+    assert port_routes == ref_routes
+    assert port_routes["ckpt" if want else "host"] == set(range(len(pairs)))
+    log = BatchAligner.CKPT_LOG
+    if explicit:
+        assert log == []
+    else:
+        assert log == [{"aligner": id(port), "event": "decide", "R_cap": 4096, "B": 128, "ckpt_rate": ck,
+                        "host_rate": h, "ckpt": want}]
+
+
+def _dyadic_clock(monkeypatch) -> list:
+    """time.time() reads a clock that moves only when a test moves it, by
+    multiples of 1/8 s from 1024 s: every difference of two readings is
+    exact, so both packages see the same seconds to the last bit."""
+    now = [1024.0]
+    monkeypatch.setattr(time, "time", lambda: now[0])
+    return now
+
+
+# (i): jobs a round and its device seconds, the launches' part and the
+# decode's part
+CKPT_ROUNDS = [(4, 0.5, 0.25), (3, 0.125, 0.125), (2, 0.25, 0.125), (4, 1.0, 0.5), (3, 0.375, 0.25)]
+
+
+def test_ckpt_rate_ema_matches_the_reference(monkeypatch):
+    """(i) Five rounds wholly on the checkpoint route (the explicit
+    override), one of them (2 jobs) under RATE_MIN_CELLS (3 jobs' cells at
+    the launch's band): after each the port's checkpoint rate equals the
+    reference's, half the last estimate and half the round's device cells
+    over its launches and decode; the small round observes nothing, and
+    the log holds one observation per other round. The port runs at budget
+    0, where the reference observes too."""
+    pairs = _pairs(4)
+    cells = BatchAligner._job_cells(_port_jobs(pairs)[0], 63)  # every job's, at B 128
+    rmc = 3 * cells
+    monkeypatch.setattr(BatchAligner, "RATE_MIN_CELLS", rmc)
+    monkeypatch.setattr(TpuBatchAligner, "RATE_MIN_CELLS", rmc)
+    now = _dyadic_clock(monkeypatch)
+    ref, port = _ref_ckpt(explicit=True), _port_ckpt(explicit=True)
+    step = {}
+
+    def ref_planned(self, jobs, planned, edits, boundary, overflow, fb_futs, count=True):
+        assert all(ck is not None for *_, ck in planned)
+        now[0] += step["launch"] + step["decode"]
+        return edits, boundary, overflow
+
+    real_planned, real_decode = BatchAligner._run_planned, BatchAligner._decode
+
+    def port_planned(self, launches):
+        out = real_planned(self, launches)
+        now[0] += step["launch"]
+        return out
+
+    def port_decode(self, *a):
+        real_decode(self, *a)
+        now[0] += step["decode"]
+
+    monkeypatch.setattr(TpuBatchAligner, "_run_planned", ref_planned)
+    monkeypatch.setattr(BatchAligner, "_run_planned", port_planned)
+    monkeypatch.setattr(BatchAligner, "_decode", port_decode)
+    rates = []
+    for n, launch, decode in CKPT_ROUNDS:
+        step.update(launch=launch, decode=decode)
+        ref._run_round_v2(_ref_jobs(pairs[:n]), [13] * n, [1] * n)
+        edits, _b, _o = port._run_round(_port_jobs(pairs[:n]), [13] * n, [1] * n)
+        for (r, q), e in zip(pairs, edits):
+            assert np.array_equal(e.apply(r), q)
+        assert port._ckpt_rate == ref._ckpt_rate
+        rates.append(port._ckpt_rate)
+    assert rates[0] == 4 * cells / 0.75 and rates[2] == rates[1] != rates[0]
+    obs = [e for e in BatchAligner.CKPT_LOG if e["event"] == "observe"]
+    assert [e["ckpt_rate"] for e in obs] == [rates[i] for i in (0, 1, 3, 4)]
+    assert [e["secs"] for e in obs] == [0.75, 0.25, 1.5, 0.625]
+    assert BatchAligner.engine_report()["gate"]["ckpt_rate"] == rates[-1]
+
+
+def test_ckpt_rate_leaves_the_host_fallback_out(monkeypatch):
+    """(i) A round wholly on the checkpoint route whose leg also sends an
+    event-dense job (hint_events 1,100: K past CKPT_K_CAP) to the host
+    engine: the job's Edit comes from the host, and the 4 s it takes after
+    the decode stay out of the checkpoint rate, as the reference leaves its
+    host-fallback jobs out (:1223-1226); the rate equals the reference's,
+    whose fallback thread the test does not slow. The device rate, where
+    the split routes, does wait for them (f)."""
+    monkeypatch.setattr(BatchAligner, "RATE_MIN_CELLS", 1)
+    monkeypatch.setattr(TpuBatchAligner, "RATE_MIN_CELLS", 1)
+    now = _dyadic_clock(monkeypatch)
+    pairs = _pairs(5)
+    widths = [13] * 4 + [65]
+    ref, port = _ref_ckpt(explicit=True), _port_ckpt(explicit=True)
+    decoded = threading.Event()
+
+    def ref_planned(self, jobs, planned, edits, boundary, overflow, fb_futs, count=True):
+        assert sorted(fb_futs) == [4]
+        now[0] += 0.75
+        return edits, boundary, overflow
+
+    real_planned, real_decode, real_fallback = (BatchAligner._run_planned, BatchAligner._decode,
+                                                BatchAligner._host_fallback)
+
+    def port_planned(self, launches):
+        out = real_planned(self, launches)
+        now[0] += 0.5
+        return out
+
+    def port_decode(self, *a):
+        real_decode(self, *a)
+        now[0] += 0.25
+        decoded.set()
+
+    def slow_fallback(self, job, count=True):
+        assert decoded.wait(JOIN_S)
+        now[0] += 4.0
+        return real_fallback(self, job, count)
+
+    monkeypatch.setattr(TpuBatchAligner, "_run_planned", ref_planned)
+    monkeypatch.setattr(BatchAligner, "_run_planned", port_planned)
+    monkeypatch.setattr(BatchAligner, "_decode", port_decode)
+    monkeypatch.setattr(BatchAligner, "_host_fallback", slow_fallback)
+    ref_jobs, port_jobs = _ref_jobs(pairs), _port_jobs(pairs)
+    ref_jobs[4].hint_events = port_jobs[4].hint_events = 1100
+    ref._run_round_v2(ref_jobs, widths, [1] * 5)
+    edits, _b, _o = port._run_round(port_jobs, widths, [1] * 5)
+    for (r, q), e in zip(pairs, edits):
+        assert np.array_equal(e.apply(r), q)
+    (obs,) = BatchAligner.CKPT_LOG
+    assert obs["secs"] == 0.75 and port._ckpt_rate == ref._ckpt_rate == obs["cells"] / 0.75
+
+
+def test_mixed_round_observes_no_ckpt_rate(monkeypatch):
+    """(j) A round whose (4096, 128) jobs take the v2 route and whose
+    (4096, 256) jobs take the checkpoint route (the override at 3,000,000
+    bytes, between the two groups' per-problem records) observes no
+    checkpoint rate in either package, whatever its size; the same jobs of
+    the checkpoint group alone do."""
+    monkeypatch.setattr(BatchAligner, "RATE_MIN_CELLS", 1)
+    monkeypatch.setattr(TpuBatchAligner, "RATE_MIN_CELLS", 1)
+    pairs = _pairs(4)
+    widths = [13, 13, 65, 65]
+
+    def ref_planned(self, jobs, planned, edits, boundary, overflow, fb_futs, count=True):
+        time.sleep(0.01)
+        return edits, boundary, overflow
+
+    monkeypatch.setattr(TpuBatchAligner, "_run_planned", ref_planned)
+    ref = TpuBatchAligner(RefParams())  # every group's records fit
+    ref.CKPT_PATHS_BYTES = 3_000_000
+    ref._SHAPES_WARM = _AllWarm()
+    port = _port(0)
+    port.ckpt_paths_bytes = 3_000_000
+    planned, _fb = port._plan(_port_jobs(pairs), widths, [1] * 4)
+    assert sorted(ckpt for *_, ckpt in planned) == [False, True]
+    ref._run_round_v2(_ref_jobs(pairs), widths, [1] * 4)
+    edits, _b, _o = port._run_round(_port_jobs(pairs), widths, [1] * 4)
+    for (r, q), e in zip(pairs, edits):
+        assert np.array_equal(e.apply(r), q)
+    assert ref._ckpt_rate is None and port._ckpt_rate is None
+    assert [e for e in BatchAligner.CKPT_LOG if e["event"] == "observe"] == []
+    ref._run_round_v2(_ref_jobs(pairs[2:]), widths[2:], [1] * 2)
+    port._run_round(_port_jobs(pairs[2:]), widths[2:], [1] * 2)
+    assert ref._ckpt_rate is not None and port._ckpt_rate is not None
+
+
+def test_failed_ckpt_launch_raises_and_serves_nothing_from_the_host(monkeypatch):
+    """(k) A round whose group does not fit takes the checkpoint pair (no
+    checkpoint rate yet) under the adaptive split ("fixed"); its launch raises, so
+    align_many raises, no job reaches a host engine, and no checkpoint rate
+    is observed."""
+    host = []
+    real_native, real_fallback = BatchAligner._run_round_native, BatchAligner._host_fallback
+
+    def spy_native(self, h_jobs, widths):
+        host.extend(h_jobs)
+        return real_native(self, h_jobs, widths)
+
+    def spy_fallback(self, job, count=True):
+        host.append(job)
+        return real_fallback(self, job, count)
+
+    def failed_launch(*a, **k):
+        raise RuntimeError("checkpoint launch failed")
+
+    monkeypatch.setattr(BatchAligner, "_run_round_native", spy_native)
+    monkeypatch.setattr(BatchAligner, "_host_fallback", spy_fallback)
+    monkeypatch.setattr(ba, "stripe_align_ckpt", failed_launch)
+    port = _port_ckpt(budget=1)
+    port._dev_rate = 1e9  # and no host rate: the split's budget of 1 cell stands
+    with pytest.raises(RuntimeError, match="checkpoint launch failed"):
+        port.align_many(_port_jobs(_pairs(4)))
+    assert host == [] and port._ckpt_rate is None
+    assert [e["ckpt"] for e in BatchAligner.CKPT_LOG] == [True]
+
+
+def test_ckpt_log_passes_chip_smokes_recomputation(monkeypatch):
+    """(l) chip_smoke.check_ckpt_log recomputes the checkpoint rate's EMA
+    from the logged observations and each logged decision from the rates
+    before it with its own copy of the reference's rule. The log of a probe
+    round, observations and decisions in the states of (h) passes it and
+    counts its rate-decided groups; a log with an answer flipped, or a rate
+    that is not the EMA's, does not."""
+    monkeypatch.setattr(BatchAligner, "RATE_MIN_CELLS", 1)
+    jobs = _port_jobs(_pairs(4))
+    port = _port_ckpt()
+    port._run_round(jobs, [13] * 4, [1] * 4)  # the probe: no rate yet
+    assert port._ckpt_rate is not None
+    for h in (port._ckpt_rate / 2, port._ckpt_rate * 2, None):
+        port._host_rate = h
+        port._plan(jobs, [13] * 4, [1] * 4)
+    log = [dict(e) for e in BatchAligner.CKPT_LOG]
+    got = chip_smoke.check_ckpt_log("test", log, 1)
+    assert got == {"observed": 1, "decided": 4, "rate_decided": 2, "ckpt": 3, "host": 1}
+    bad = [dict(e) for e in log]
+    bad[-2]["ckpt"] = not bad[-2]["ckpt"]
+    with pytest.raises(AssertionError, match="the rule gives"):
+        chip_smoke.check_ckpt_log("test", bad, 1)
+    bad = [dict(e) for e in log]
+    bad[1]["ckpt_rate"] *= 1.5
+    with pytest.raises(AssertionError, match="EMA"):
+        chip_smoke.check_ckpt_log("test", bad, 1)
