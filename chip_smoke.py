@@ -20,13 +20,15 @@ Phases, one line each (any failure exits non-zero and prints no result):
    than a warp (records and events equal element for element), and the
    checkpoint pair
    at the shapes the long-tier path gives it, (B 128, R 65536),
-   (B 1920, R 131072) and (B 2048, R 10240), every problem through the
-   kernels, whose events must equal the v2 kernels', and at (B 128,
-   R 65536) and (B 2048, R 10240) (CKPT_PLAIN_SHAPES) every problem's
-   carries against the plain DP's, and two problems of each shape (the one
-   with the most windows among them) through the plain walk too (carries,
-   events and meta equal element for element); at (B 1920, R 131072) the
-   kernels are timed and held against the v2 kernels' events only;
+   (B 1920, R 131072) and (B 2048, R 10240), and at (B 1920, R 10240) on
+   two problems, every problem through the kernels, whose events must
+   equal the v2 kernels', and at (B 128, R 65536), (B 2048, R 10240) and
+   (B 1920, R 10240) (CKPT_PLAIN_SHAPES) every problem's carries against
+   the plain DP's, and two problems of each shape (the one with the most
+   windows among them) through the plain walk too (carries, events and meta
+   equal element for element); at (B 1920, R 131072) the kernels are timed
+   and held against the v2 kernels' events only, and band 1920 is held
+   against the plain versions on the short tier;
    kernel and plain times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
    and cycles a dependent read;
@@ -210,9 +212,10 @@ PROFILE_TRIES = 5  # profiler sessions a _kernel_ms timing may take
 EVENT_TIMED: set = set()
 # (B, R, problems): the shapes the long-tier path (phase 5) gives the pair:
 # its 65,536 tier at B 128, its 131,072 tier at its widest band, and its
-# 10,240 tier at the kernel's widest band; R is the tier, the problems' rows
+# 10,240 tier at the kernel's widest band; then band 1920 on a short tier,
+# where its plain versions take seconds; R is the tier, the problems' rows
 # are drawn from the tier's range (R/2 to R)
-CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8)]
+CKPT_SHAPES = [(128, 65536, 8), (1920, 131072, 4), (2048, 10240, 8), (1920, 10240, 2)]
 # the checkpoint walk's plain version takes minutes at these shapes, so it
 # runs on this many of each shape's problems: the one with the most windows
 # and the first of the others (_plain_ckpt_problems; dev/ckpt_plain_cost.py
@@ -223,8 +226,9 @@ PLAIN_CKPT_WALK_PROBLEMS = 2
 # the shapes at which the pair is held against its plain versions; at
 # (1920, 131072) the plain DP and walk took about 116 s and 92-127 s of
 # each run (PERF.md §6-7), so there the kernels are timed and their events
-# held against the v2 kernels' only
-CKPT_PLAIN_SHAPES = {(128, 65536), (2048, 10240)}
+# held against the v2 kernels' only, and band 1920 meets its plain
+# versions at (1920, 10240), whose time follows its longest problem's rows
+CKPT_PLAIN_SHAPES = {(128, 65536), (2048, 10240), (1920, 10240)}
 MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"

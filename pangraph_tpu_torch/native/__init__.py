@@ -81,15 +81,14 @@ def _bind(lib):
 
 
 def get_lib():
-    """The loaded native library, or None if unavailable.
-    PANGRAPH_TPU_FORCE_SCALAR=1 selects the scalar (non-AVX-512) build."""
+    """The loaded native library, or None if unavailable."""
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     with _LOCK:
         if _LIB is None and not _TRIED:
             try:
-                _LIB = _bind(_build_and_load(force_scalar=bool(os.environ.get("PANGRAPH_TPU_FORCE_SCALAR"))))
+                _LIB = _bind(_build_and_load())
             except Exception as e:  # pragma: no cover
                 log.warning("native library unavailable, using numpy fallbacks: %s", e)
             _TRIED = True
@@ -97,21 +96,23 @@ def get_lib():
 
 
 _SCALAR_LIB = None
+_SCALAR_TRIED = False
 
 
 def get_scalar_lib():
     """The -DSTRIPE_FORCE_SCALAR build (native/stripe.cpp's scalar row
     loop), for parity checks against the default build's. Returns None
     when the toolchain is unavailable."""
-    global _SCALAR_LIB
-    if _SCALAR_LIB is None:
-        with _LOCK:
-            if _SCALAR_LIB is None:
-                try:
-                    _SCALAR_LIB = _bind(_build_and_load(force_scalar=True))
-                except Exception as e:  # pragma: no cover
-                    log.warning("scalar native build unavailable: %s", e)
-                    return None
+    global _SCALAR_LIB, _SCALAR_TRIED
+    if _SCALAR_LIB is not None or _SCALAR_TRIED:
+        return _SCALAR_LIB
+    with _LOCK:
+        if _SCALAR_LIB is None and not _SCALAR_TRIED:
+            try:
+                _SCALAR_LIB = _bind(_build_and_load(force_scalar=True))
+            except Exception as e:  # pragma: no cover
+                log.warning("scalar native build unavailable: %s", e)
+            _SCALAR_TRIED = True
     return _SCALAR_LIB
 
 

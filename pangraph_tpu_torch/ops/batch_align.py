@@ -875,12 +875,14 @@ class BatchAligner:
 
         planned = []
         for (R_cap, B), idxs in groups.items():
-            ckpt = self._use_ckpt(R_cap, B, self.budget // 4)
-            if ckpt is None:
+            route = self._route(R_cap, B, self.budget // 4)
+            if route == "host":
                 # records that do not fit, and the checkpoint pair is slower
-                # than the host engine: the reference's host path
+                # than the host engine: the reference's host path, the
+                # single-job fallback on its two threads
                 fallback_idx.extend(idxs)
                 continue
+            ckpt = route == "ckpt"
             M = self._launch_cap(R_cap, B, ckpt)
             idxs = sorted(idxs, key=lambda i: -len(jobs[i].ref))
             for c0 in range(0, len(idxs), M):
@@ -907,19 +909,19 @@ class BatchAligner:
                 planned.append((sub, R_cap, B, K, ckpt))
         return planned, fallback_idx
 
-    def _use_ckpt(self, R_cap: int, B: int, batch_bytes: int):
-        """Which route does a (tier, band) group take? The checkpoint route
-        (True) past the reference's override, compared on the reference's
-        per-problem record bytes (window coordinates, B + 128 lanes) so that
-        one value routes the same tiers in both packages. Where v2 records
-        of a minimum group of 8 problems do not fit a launch's share, the
-        checkpoint route while `_ckpt_competitive` says so, else None: the
-        host engine. Otherwise the v2 route (False)."""
+    def _route(self, R_cap: int, B: int, batch_bytes: int) -> str:
+        """Which route does a (tier, band) group take? "ckpt", the
+        checkpoint pair, past the reference's override, compared on the
+        reference's per-problem record bytes (window coordinates, B + 128
+        lanes) so that one value routes the same tiers in both packages.
+        Where v2 records of a minimum group of 8 problems do not fit a
+        launch's share, "ckpt" while `_ckpt_competitive` says so, else
+        "host": the host engine. Otherwise "v2"."""
         if R_cap * (B + DP_C) * 2 > self.ckpt_paths_bytes:
-            return True
+            return "ckpt"
         if 8 * R_cap * B * 2 > batch_bytes:
-            return True if self._ckpt_competitive(R_cap, B) else None
-        return False
+            return "ckpt" if self._ckpt_competitive(R_cap, B) else "host"
+        return "v2"
 
     def _run_round_device(self, jobs: list, widths: list, kbumps: list):
         """Start a device leg: plan its launches in the calling thread (so
@@ -1063,7 +1065,7 @@ class BatchAligner:
                 tk.ev.set()
             raise
 
-    def _run_combined(self, batch: list) -> list:
+    def _run_combined(self, batch: list) -> tuple:
         """One combined round over the legs of `batch` ([(jobs, planned,
         cells, ticket)]): the legs' planned launches with equal (R_cap, B, K,
         route) merged, longest problems first, and split again at the

@@ -73,18 +73,21 @@ def test_scalar_build_is_its_own_library():
     assert any(f[: -len(".so")] + "_scalar.so" in names for f in plain), names
 
 
-def test_force_scalar_environment_selects_the_scalar_build(monkeypatch):
-    """PANGRAPH_TPU_FORCE_SCALAR makes the scalar build the default
-    library, as in the reference, with the reference library's outputs."""
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_TRIED", False)
-    monkeypatch.setenv("PANGRAPH_TPU_FORCE_SCALAR", "1")
-    lib = native.get_lib()
-    assert lib is not None and lib._name.endswith("_scalar.so")
-    refs, qrys, ms, W = chip_smoke.row_loop_jobs()
-    port = native.stripe_align_batch_native(refs[:8], qrys[:8], ms[:8], W[:8], BandedAlignParams(), IUPAC_MASK)
-    ref = ref_native.stripe_align_batch_native(refs[:8], qrys[:8], ms[:8], W[:8], RefParams(), REF_IUPAC_MASK)
-    assert_same(port, ref)
+def test_failed_scalar_build_is_tried_once(monkeypatch):
+    """A scalar build that fails returns None and is not tried again on the
+    next call, as get_lib's default build is."""
+    calls = []
+
+    def failing_build(force_scalar=False):
+        calls.append(force_scalar)
+        raise OSError("no toolchain")
+
+    monkeypatch.setattr(native, "_SCALAR_LIB", None)
+    monkeypatch.setattr(native, "_SCALAR_TRIED", False)
+    monkeypatch.setattr(native, "_build_and_load", failing_build)
+    assert native.get_scalar_lib() is None
+    assert native.get_scalar_lib() is None
+    assert calls == [True]
 
 
 def test_boundary_flag_matches_the_reference():

@@ -599,8 +599,8 @@ def test_reference_ckpt_route_follows_its_measured_rate(monkeypatch):
     rate is known, then only while that rate beats the host's. The rate is
     written (:1220-1222) by a warm round whose every launch is on the
     checkpoint route and which holds at least RATE_MIN_CELLS device cells.
-    The port routes a tier whose records do not fit to the checkpoint pair
-    whatever the rates (_use_ckpt)."""
+    The port's rule and its route (_route) give the same answer in each of
+    CKPT_STATES."""
     ref = TpuBatchAligner(RefParams())
     assert ref._ckpt_rate is None and ref._ckpt_competitive()
     monkeypatch.setattr(TpuBatchAligner, "RATE_MIN_CELLS", 1)
@@ -625,7 +625,7 @@ def test_reference_ckpt_route_follows_its_measured_rate(monkeypatch):
         port.ckpt_paths_bytes = 0 if explicit else 10**18
         answer = explicit or ref._ckpt_competitive()
         assert port._ckpt_competitive() == ref._ckpt_competitive()
-        assert port._use_ckpt(131072, 128, 8 * 131072 * 128 * 2 - 1) is (True if answer else None)
+        assert port._route(131072, 128, 8 * 131072 * 128 * 2 - 1) == ("ckpt" if answer else "host")
 
 
 # (h)-(l): name, checkpoint rate, host rate, the explicit override, and
