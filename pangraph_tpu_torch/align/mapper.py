@@ -778,13 +778,14 @@ def map_all_vs_all(
 
     n_groups = len(groups[2]) - 1
     n_threads = max(1, min(n_threads, n_groups)) if n_groups else 1
-    if n_threads > 1 and n_groups > 1:
-        import concurrent.futures as _cf
+    with trace.span("mapper.groups"):
+        if n_threads > 1 and n_groups > 1:
+            import concurrent.futures as _cf
 
-        with _cf.ThreadPoolExecutor(max_workers=n_threads) as pool:
-            per_group = list(pool.map(group_jobs, range(n_groups)))
-    else:
-        per_group = [group_jobs(gi) for gi in range(n_groups)]
+            with _cf.ThreadPoolExecutor(max_workers=n_threads) as pool:
+                per_group = list(pool.map(trace.carry(group_jobs), range(n_groups)))
+        else:
+            per_group = [group_jobs(gi) for gi in range(n_groups)]
     jobs = [j for js in per_group for j in js]
     edits = _align_chain_jobs(jobs, band_params, aligner)
     out = []

@@ -15,6 +15,7 @@ from pangraph_tpu_torch.build.merge import merge_graphs
 from pangraph_tpu_torch.build.tree import balance_tree, build_guide_tree, guide_tree_from_newick
 from pangraph_tpu_torch.graph.graph import Pangraph, reconstruct
 from pangraph_tpu_torch.graph.seq import to_str
+from pangraph_tpu_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
@@ -150,12 +151,14 @@ def build(records, args: BuildArgs, aligner=None, find_matches_override=None, pr
 
     graphs = {r.index: Pangraph.singleton(r.seq_name, r.seq, r.index, args.circular, desc=r.desc) for r in records}
 
-    if args.guide_tree:
-        with open(args.guide_tree) as f:
-            tree = guide_tree_from_newick(f.read(), names)
-    else:
-        tree = build_guide_tree(names, [r.seq for r in records])
-        tree = balance_tree(tree)
+    trace.new_build()
+    with trace.span("build.guide_tree"):
+        if args.guide_tree:
+            with open(args.guide_tree) as f:
+                tree = guide_tree_from_newick(f.read(), names)
+        else:
+            tree = build_guide_tree(names, [r.seq for r in records])
+            tree = balance_tree(tree)
     log.info("guide tree: %s", tree.to_newick())
 
     find_matches = find_matches_override or make_find_matches(args, aligner)
@@ -324,6 +327,7 @@ def _merge_tree_parallel(
         c.data = g
         return c
 
+    run = trace.carry(run)  # the pool's spans take this build's id
     with cf.ThreadPoolExecutor(max_workers=jobs) as ex:
         futures = {ex.submit(run, c): c for c in internals if pending[id(c)] == 0}
         while futures:

@@ -78,14 +78,15 @@ def self_merge(graph: Pangraph, args, find_matches, aligner=None, pair_cache=Non
             matches = find_matches(graph.blocks, args.aln_args)
     log.debug("found %d matches", len(matches))
 
-    split = []
-    for m in matches:
-        if m.qry.name == m.reff.name:
-            continue
-        split.extend(split_matches(m, args.aln_args.indel_len_threshold))
-    log.debug("matches after splitting: %d", len(split))
+    with trace.span("merge.split_filter"):
+        split = []
+        for m in matches:
+            if m.qry.name == m.reff.name:
+                continue
+            split.extend(split_matches(m, args.aln_args.indel_len_threshold))
+        log.debug("matches after splitting: %d", len(split))
 
-    accepted = filter_matches(split, args.aln_args)
+        accepted = filter_matches(split, args.aln_args)
     log.debug("matches after filtering: %d", len(accepted))
     if not accepted:
         return graph, False
@@ -110,7 +111,8 @@ def self_merge(graph: Pangraph, args, find_matches, aligner=None, pair_cache=Non
 def merge_graphs(left: Pangraph, right: Pangraph, args, find_matches, aligner=None) -> Pangraph:
     """Merge two graphs: join then self-merge to fixpoint
     (graph_merging.rs:26-72)."""
-    graph = graph_join(left, right)
+    with trace.span("merge.graph_join"):
+        graph = graph_join(left, right)
     i = 0
     # round-over-round pair cache, scoped to this merge's fixpoint loop:
     # later rounds re-map a mostly-unchanged block set; both-unchanged pairs

@@ -80,7 +80,9 @@ def build_parser():
         help="Split alignment launches over this many CUDA cards (default: every visible card; 1 disables "
         "the mesh); under --device cpu, over this many CPU shards (default 1)",
     )
-    b.add_argument("--trace", action="store_true", help="Log per-phase wall-time breakdown at the end")
+    b.add_argument("--trace", action="store_true",
+                   help="Print a per-phase table at the end (calls, inclusive and self seconds, parent) and, on a "
+                        "CUDA device, the card's busy share, kernel seconds by name and idle seconds by innermost span")
     b.add_argument("--no-progress-bar", action="store_true")
     b.add_argument("--upper-case", action="store_true", help="Uppercase input sequences (always on)")
     _add_verbosity(b, jobs_help="Number of merge threads")
@@ -305,16 +307,27 @@ def _cmd_build(args) -> int:
         check_mmseqs()
         find_matches = make_mmseqs_find_matches(build_args)
     aligner = _aligner(args, build_args, mesh)
+    card = args.trace and aligner is not None and aligner.device is not None and aligner.device.type == "cuda"
     if args.trace:
         trace.enable(True)
+    if card:
+        from pangraph_tpu_torch.ops import stripe_v2
+
+        stripe_v2.KERNEL_TIMING = []
+        for dev in dict.fromkeys(aligner.mesh.devices):
+            trace.anchor_device(dev)
     recs = read_fasta(args.input_fastas)
     progress = ProgressBar(max(len(recs) - 1, 1), enabled=not args.no_progress_bar)
     graph = build(recs, build_args, aligner="numpy" if aligner is None else aligner,
                   find_matches_override=find_matches, progress=progress)
     progress.close()
-    if args.trace:
-        print(trace.summary(), file=sys.stderr)
     graph.to_file(None if args.output_json == "-" else args.output_json)
+    if args.trace:
+        launches = None
+        if card:
+            launches = [(name, index, start, end) for name, _B, _R, _m, index, start, end, _s in stripe_v2.KERNEL_TIMING]
+            stripe_v2.KERNEL_TIMING = None
+        print(trace.summary(launches), file=sys.stderr)
     return 0
 
 

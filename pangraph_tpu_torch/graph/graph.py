@@ -19,6 +19,7 @@ import numpy as np
 
 from pangraph_tpu_torch.graph.edits import Edit
 from pangraph_tpu_torch.graph.seq import as_seq, revcomp, to_str
+from pangraph_tpu_torch.utils import trace
 from pangraph_tpu_torch.utils.ids import content_id
 
 FWD = "+"
@@ -348,7 +349,8 @@ class Pangraph:
         return {"paths": paths, "blocks": blocks, "nodes": nodes}
 
     def to_json(self, indent=2) -> str:
-        return json.dumps(self.to_json_dict(), indent=indent) + "\n"
+        with trace.span("graph.to_json"):
+            return json.dumps(self.to_json_dict(), indent=indent) + "\n"
 
     @staticmethod
     def from_json_dict(d: dict) -> "Pangraph":

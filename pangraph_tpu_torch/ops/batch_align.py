@@ -110,13 +110,15 @@ class _BrokerTicket:
     """One leg's slot in a combined device round; `round` is the round's
     rate observation (_RoundClock), set with `out`."""
 
-    __slots__ = ("ev", "out", "exc", "round")
+    __slots__ = ("ev", "out", "exc", "round", "cause")
 
     def __init__(self):
         self.ev = threading.Event()
         self.out = None
         self.exc = None
         self.round = None
+        # the innermost span open on the submitting thread (trace.current)
+        self.cause = trace.current()
 
     def result(self):
         self.ev.wait()
@@ -259,11 +261,12 @@ class BatchAligner:
     # the rates and overhead of the aligner that last gated or observed one
     _LAST_GATE = {"host_rate": None, "dev_rate": None, "ckpt_rate": None, "dev_latency_s": None}
 
-    # per-engine DP-cell accounting: engine -> [cells, warm_cells, warm_secs].
-    # No engine compiles inside a round here, so every cell is warm; the
-    # fields keep the reference's receipt shape. The device's seconds are
-    # each combined round's once, however many legs it held.
-    ENGINE = {"host": [0, 0, 0.0], "device": [0, 0, 0.0]}
+    # DP cells per engine
+    ENGINE = {"host": 0, "device": 0}
+    # bytes the device legs copy off the card (every fetched array) and the
+    # part of them the decode reads (each problem's meta row and event
+    # count, and its events where they did not overflow)
+    FETCH = {"bytes": 0, "used_bytes": 0}
     _ENGINE_LOCK = threading.Lock()
     # (kind, n_jobs, cells, seconds, ref_bp): one row per leg's round
     # ("host", "mixed[n=<host jobs>,d=<device jobs>]"; its seconds are the
@@ -427,32 +430,28 @@ class BatchAligner:
     # ------------------------------------------------------------ receipts
 
     @classmethod
-    def _engine_count(cls, engine: str, cells: int, warm_cells: int, warm_secs: float) -> None:
+    def _engine_count(cls, engine: str, cells: int) -> None:
         with cls._ENGINE_LOCK:
-            e = cls.ENGINE[engine]
-            e[0] += cells
-            e[1] += warm_cells
-            e[2] += warm_secs
+            cls.ENGINE[engine] += cells
+
+    @classmethod
+    def _fetch_count(cls, key: str, nbytes: int) -> None:
+        with cls._ENGINE_LOCK:
+            cls.FETCH[key] += nbytes
 
     @classmethod
     def engine_report(cls) -> dict:
-        """Per-engine DP-cell totals, the device's share of the cells, and
-        each engine's throughput over the rounds it served (the device's
-        seconds count each combined round once); device cells per route,
-        tier and shard; and the broker's combined rounds, the legs they
-        held and the most legs in one."""
+        """Per-engine DP-cell totals and the device's share of the cells;
+        the bytes fetched off the card and the part the decode read; device
+        cells per route, tier and shard; and the broker's combined rounds,
+        the legs they held and the most legs in one."""
         with cls._ENGINE_LOCK:
-            engines = {k: list(v) for k, v in cls.ENGINE.items()}
-        out = {}
-        for k, (c, wc, ws) in engines.items():
-            out[k] = {
-                "cells": int(c),
-                "warm_cells": int(wc),
-                "warm_secs": round(ws, 3),
-                "warm_gcells_per_s": round(wc / ws / 1e9, 3) if ws > 0 else None,
-            }
-        tot = sum(v[0] for v in engines.values())
-        out["device_cells_frac"] = round(engines["device"][0] / tot, 4) if tot else None
+            engines = dict(cls.ENGINE)
+            fetch = dict(cls.FETCH)
+        out = {k: {"cells": int(c)} for k, c in engines.items()}
+        tot = sum(engines.values())
+        out["device_cells_frac"] = round(engines["device"] / tot, 4) if tot else None
+        out["fetch"] = fetch
         routes, tiers = {}, {}
         broker = {"rounds": 0, "legs": 0, "max_legs": 0}
         with cls._ENGINE_LOCK:
@@ -494,9 +493,10 @@ class BatchAligner:
     @classmethod
     def reset_engine_stats(cls) -> None:
         with cls._ENGINE_LOCK:
-            for e in cls.ENGINE.values():
-                e[0] = e[1] = 0
-                e[2] = 0.0
+            for k in cls.ENGINE:
+                cls.ENGINE[k] = 0
+            for k in cls.FETCH:
+                cls.FETCH[k] = 0
             cls.STATS.clear()
             cls.SHARDS.clear()
             cls.GATE_LOG.clear()
@@ -758,12 +758,13 @@ class BatchAligner:
                 # split assumes
                 if nat_idx:
                     host_pool = cf.ThreadPoolExecutor(max_workers=1)
-                    host_fut = host_pool.submit(host_leg)
+                    host_fut = host_pool.submit(trace.carry(host_leg))
                 e, b, o = collect()
                 for s, i in enumerate(dev_idx):
                     edits[i], boundary[i], overflow[i] = e[s], b[s], o[s]
                 if host_pool is not None:
-                    host_fut.result()
+                    with trace.span("align.host_wait"):
+                        host_fut.result()
             elif nat_idx:
                 host_leg()
         finally:
@@ -797,7 +798,6 @@ class BatchAligner:
         rules as the host aligner; edits match map_variations exactly."""
         from pangraph_tpu_torch.native import stripe_align_batch_native
 
-        t_eng = time.time()
         eng_cells = sum(self._job_cells(j, int(w)) for j, w in zip(jobs, widths))
         n = len(jobs)
         refs = [j.ref for j in jobs]
@@ -846,7 +846,7 @@ class BatchAligner:
                     edits[s] = self._host_fallback(jobs[s], count=False)
             else:  # paths over budget: numpy fallback
                 edits[s] = self._host_fallback(jobs[s], count=False)
-        self._engine_count("host", eng_cells, eng_cells, time.time() - t_eng)
+        self._engine_count("host", eng_cells)
         return edits, boundary, [False] * n
 
     def _plan(self, jobs: list, widths: list, kbumps: list):
@@ -950,17 +950,21 @@ class BatchAligner:
         fb_futs = {}
         if fallback_idx:
             fb_pool = cf.ThreadPoolExecutor(max_workers=2)
-            fb_futs = {i: fb_pool.submit(self._host_fallback, jobs[i]) for i in fallback_idx}
+            fallback = trace.carry(self._host_fallback)
+            fb_futs = {i: fb_pool.submit(fallback, jobs[i]) for i in fallback_idx}
 
         def collect():
             try:
                 if ticket is not None:
-                    fetched = ticket.result()
+                    with trace.span("align.wait"):
+                        fetched = ticket.result()
                     t_dec = time.time()
                     self._decode(jobs, fetched, edits, boundary, overflow)
                     decode_s = time.time() - t_dec
-                for i, f in fb_futs.items():
-                    edits[i] = f.result()
+                if fb_futs:
+                    with trace.span("align.host_wait"):
+                        for i, f in fb_futs.items():
+                            edits[i] = f.result()
                 if ticket is not None and ticket.round is not None:
                     self._leg_decoded(ticket.round, time.time() - t_dec, decode_s)
             finally:
@@ -1036,13 +1040,15 @@ class BatchAligner:
                                 return
                     continue
                 if len(batch) == 1:
-                    time.sleep(self.BROKER_GATHER_S)
+                    with trace.caused_by((batch[0][-1].cause,)), trace.span("align.gather"):
+                        time.sleep(self.BROKER_GATHER_S)
                     with self._broker_lock:
                         batch += self._broker_queue
                         self._broker_queue = []
                 try:
                     t_round = time.time()
-                    outs, ckpt_cells = self._run_combined(batch)
+                    with trace.caused_by(tk.cause for *_, tk in batch):
+                        outs, ckpt_cells = self._run_combined(batch)
                     clock = None
                     if self.gated() or ckpt_cells is not None:
                         clock = _RoundClock(time.time() - t_round, sum(c for _j, _p, c, _tk in batch), len(batch),
@@ -1092,7 +1098,7 @@ class BatchAligner:
             g[0].extend(j for _leg, _i, j in probs)
             g[1] += sum(self._job_cells(j, (B - 2) // 2) for _leg, _i, j in probs)
         dev_cells = sum(c for _, c in groups.values())
-        self._engine_count("device", dev_cells, dev_cells, dt)
+        self._engine_count("device", dev_cells)
         for (route, R_cap, B), (g_jobs, cells) in groups.items():
             self._record(f"device.{route}.{R_cap}.{B}", g_jobs, cells, dt)
         self._record(f"broker[legs={len(batch)}]", [p[-1] for probs, *_ in launches for p in probs], dev_cells, dt)
@@ -1196,7 +1202,9 @@ class BatchAligner:
                 fetched = []
                 for s, part, K, out in launched:
                     with self._stream_scope(s):
-                        fetched.append((part, K, {k: v.cpu().numpy() for k, v in out.items()}))
+                        arrays = {k: v.cpu().numpy() for k, v in out.items()}
+                    fetched.append((part, K, arrays))
+                    self._fetch_count("bytes", sum(a.nbytes for a in arrays.values()))
         finally:
             self._mem_release(grants)
         return fetched
@@ -1204,15 +1212,22 @@ class BatchAligner:
     def _decode(self, jobs: list, fetched: list, edits, boundary, overflow) -> None:
         """Decode a leg's fetched events ([(job indices, K, arrays)]) into
         its Edits, boundary and overflow flags."""
+        used = 0
         with trace.span("align.decode"):
             for idx, K, out in fetched:
                 meta, n_events, rows, words = out["meta"], out["n_events"], out["rows"], out["words"]
+                # read per problem: its meta row and event count, and an
+                # entry of rows and of words ([m, K]) per event
+                fixed = meta[0].nbytes + n_events.itemsize
+                per_event = rows.itemsize + words.itemsize
                 for s, i in enumerate(idx):
                     j = jobs[i]
                     boundary[i] = bool(meta[s, 2])
                     overflow[i] = int(n_events[s]) > K
+                    used += fixed
                     if overflow[i]:
                         continue  # retried with a bigger event capacity
+                    used += int(n_events[s]) * per_event
                     edit, ok = edit_from_events(rows[s], words[s], n_events[s], meta[s], j.ref, j.qry)
                     if ok:
                         edits[i] = edit
@@ -1225,6 +1240,7 @@ class BatchAligner:
                         # count=False: this job's cells are already counted
                         # as device cells
                         edits[i] = self._host_fallback(j, False)
+        self._fetch_count("used_bytes", used)
 
     def _count_shard(self, shard: int, cells: int) -> None:
         with self._ENGINE_LOCK:
@@ -1251,7 +1267,6 @@ class BatchAligner:
             self._mem_lock.notify_all()
 
     def _host_fallback(self, job: AlignJob, count: bool = True) -> Edit:
-        t_eng = time.time()
         try:
             with trace.span("align.host_fallback"):
                 edit = self._native_single(job)
@@ -1264,7 +1279,7 @@ class BatchAligner:
             # count=False when the caller already accounted these cells
             if count:
                 cells = self._job_cells(job, job.band.band_width + self.extra)
-                self._engine_count("host", cells, cells, time.time() - t_eng)
+                self._engine_count("host", cells)
 
     def _native_single(self, job: AlignJob) -> Edit:
         """Single-job native alignment with the host aligner's own retry loop
