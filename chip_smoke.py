@@ -31,7 +31,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    against the plain versions on the short tier;
    kernel and plain times are printed, with the checkpoint walk's waves and the device ms of
    its re-derive and walk launches apart, and each walk's dependency bound
-   and cycles a dependent read;
+   and cycles a dependent read; at every shape of both routes the decode
+   of the card walk's events (decode_events) against its plain version on
+   the same tensors (the head but its offsets, the totals and each
+   problem's substitutions and events equal), timed, with its byte bound;
 3b. the checkpoint pair at Mbp scale (B 128, R 2,097,152, 32 problems),
    kernels only: its events must equal the v2 kernels' on the same batch;
    both routes are timed, with their carry and record bytes, and the
@@ -46,7 +49,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    and its bytes and operations bounds;
 4. the main path: `build -c -f -j 2 --device cuda --devices 1` through the
    CLI (one device on any host) on the headline pangenome (10 x 4.6 Mbp from make_accessory_pangenome, seed 13),
-   with an exact roundtrip, the DP and walk launched, the checkpoint pair
+   with an exact roundtrip, the DP, walk and decode launched, the checkpoint pair
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
    (1156 blocks, core fraction 0.4875, 7,028,975 bp: the bench's
@@ -710,7 +713,7 @@ def phase_kernels(torch) -> dict:
     from pangraph_tpu_torch.ops import stripe_v2 as sv
 
     dev = torch.device("cuda", 0)
-    worst = {"stripe_dp": 0, "walk": 0}
+    worst = {"stripe_dp": 0, "walk": 0, "decode_events": 0}
     times = {}
     shapes = [(shape, {}) for shape in KERNEL_SHAPES] + [(LONG_INDEL_SHAPE, LONG_INDELS)]
     for shape_i, ((B, R, m), mutation) in enumerate(shapes):
@@ -741,10 +744,13 @@ def phase_kernels(torch) -> dict:
         reads_all = int(_walk_reads(out, arrays[2], WALK_K, min(sv.RUN_CAP, seg)).max(initial=0))
         # every pair whose events decode must decode to its exact edit
         decoded, exact = _decode_all(sv, arrays, out)
+        dec = _decode_check(torch, sv, out, (ref, qry, rlen, qlen))
 
         worst["stripe_dp"] = max(worst["stripe_dp"], dp_err)
         worst["walk"] = max(worst["walk"], walk_err)
-        times[(B, R)] = {"stripe_dp": (dp_ms, plain_dp_ms, dp_bound), "walk": (walk_ms, plain_walk_ms, walk_bound)}
+        worst["decode_events"] = max(worst["decode_events"], len(dec["differ"]))
+        times[(B, R)] = {"stripe_dp": (dp_ms, plain_dp_ms, dp_bound), "walk": (walk_ms, plain_walk_ms, walk_bound),
+                         "decode_events": (dec["ms"], dec["plain_ms"], dec["bound"])}
         say("kernels", B=B, R=R, problems=m, long_indels=bool(mutation), cells=cells, dp_ms=round(dp_ms, 3), plain_dp_ms=round(plain_dp_ms, 1),
             dp_gcells_per_s=round(cells / dp_ms / 1e6, 2), dp_bound_ms=round(dp_bound["bound_ms"], 4),
             dp_bound_by=dp_bound["bound_by"], dp_dep_bound_ms=round(dp_bound["dep_bound_ms"], 4),
@@ -757,8 +763,9 @@ def phase_kernels(torch) -> dict:
             walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 5), walk_binds=walk_bound["binds"],
             walk_reads_at_least=walk_bound["reads"],
             walk_cycles_per_read=round(walk_ms * 1e-3 * SM_CLOCK_HZ / max(walk_bound["reads"], 1)),
-            walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact)
-        if dp_err or walk_err or exact != decoded:
+            walk_max_abs_err=walk_err, max_events=int(nev_k.max()), decoded=decoded, exact=exact,
+            **_decode_kv(dec))
+        if dp_err or walk_err or exact != decoded or dec["differ"]:
             raise AssertionError(f"kernel disagrees with its plain version at B={B} R={R}")
         del rec, rec_plain
         torch.cuda.empty_cache()
@@ -828,11 +835,12 @@ def _walk_ckpt_parts(torch, sv, args, K: int) -> dict:
 
 def phase_ckpt_kernels(torch) -> dict:
     """The checkpoint pair against its plain versions at CKPT_PLAIN_SHAPES,
-    and its events against the v2 kernels' at every shape."""
+    and its events against the v2 kernels' at every shape, and their
+    decode against the plain decode (_decode_check)."""
     from pangraph_tpu_torch.ops import stripe_v2 as sv
 
     dev = torch.device("cuda", 0)
-    worst = {"stripe_dp_ckpt": 0, "walk_ckpt": 0}
+    worst = {"stripe_dp_ckpt": 0, "walk_ckpt": 0, "decode_events": 0}
     times = {}
     for shape_i, (B, R, m) in enumerate(CKPT_SHAPES):
         arrays = kernel_inputs(B, R, m, seed=200 + shape_i)
@@ -868,6 +876,8 @@ def phase_ckpt_kernels(torch) -> dict:
         v2 = sv.walk(sv.stripe_dp(*t, B), *t[2:], sv.walk_segment(R, B), WALK_K)
         bad, bnd = _events_differ(out, v2, WALK_K)
         decoded, exact = _decode_all(sv, arrays, out)
+        dec = _decode_check(torch, sv, out, t[:4])
+        worst["decode_events"] = max(worst["decode_events"], len(dec["differ"]))
         dp_bound, walk_bound, win = _ckpt_bounds(arrays, B, n_windows, out, WALK_K, sel)
 
         if plain:
@@ -890,8 +900,8 @@ def phase_ckpt_kernels(torch) -> dict:
             walk_bound_ms=round(walk_bound["bound_ms"], 4), walk_bound_by=walk_bound["bound_by"],
             walk_dep_bound_ms=round(walk_bound["dep_bound_ms"], 4), walk_binds=walk_bound["binds"],
             walk_max_abs_err=walk_err, max_events=int(out[2].max()), events_differ_from_v2=bad,
-            meta2_differs_from_v2=bnd, decoded=decoded, exact=exact)
-        if dp_err or walk_err or bad or exact != decoded:
+            meta2_differs_from_v2=bnd, decoded=decoded, exact=exact, **_decode_kv(dec))
+        if dp_err or walk_err or bad or exact != decoded or dec["differ"]:
             raise AssertionError(f"checkpoint kernel disagrees at B={B} R={R}")
         del ck, v2
         torch.cuda.empty_cache()
@@ -943,6 +953,66 @@ def phase_mbp(torch) -> dict:
     if int((out[2] > MBP_K).sum()):
         raise AssertionError("event overflow at Mbp scale: raise MBP_K")
     return {"ckpt_dp_ms": ck_dp_ms, "ckpt_walk_ms": ck_walk_ms, "v2_dp_ms": v2_dp_ms, "v2_walk_ms": v2_walk_ms}
+
+
+def _decode_differ(got: dict, want: dict) -> list:
+    """The problems whose decode differs between two decode_events outputs
+    of one launch: the head but its offsets (each problem's own on the
+    card), or the problem's substitutions or events; all of them where the
+    totals differ."""
+    got, want = ({k: v.cpu() for k, v in d.items()} for d in (got, want))
+    m = got["head"].shape[0]
+    if not torch_equal(got["totals"], want["totals"]):
+        return list(range(m))
+    cols = [0, 1, 2, 3, 5, 7]
+    differ = []
+    for s, (hg, hw) in enumerate(zip(got["head"].tolist(), want["head"].tolist())):
+        same = [hg[c] for c in cols] == [hw[c] for c in cols] and all(
+            torch_equal(got[k][hg[a]: hg[a] + hg[n]], want[k][hw[a]: hw[a] + hw[n]])
+            for a, n, k in ((4, 5, "sub_pos"), (4, 5, "sub_alt"), (6, 7, "evs")))
+        if not same:
+            differ.append(s)
+    return differ
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _decode_bound(walk, t, totals) -> dict:
+    """The decode's bound, as dev/decode_cuda.py counts its bytes: ref and
+    qry bytes in use, the walk's event slots in use, meta, n_events, rlen
+    and qlen read once; the head, substitutions (5 bytes) and events (16
+    bytes) written once."""
+    from pangraph_tpu_torch.ops import stripe_v2 as sv
+
+    nev, rlen, qlen = walk[2], t[2], t[3]
+    K, m = walk[0].shape[1], len(nev)
+    n_sub, n_ev = totals.tolist()
+    read = int(rlen.long().sum()) + int(qlen.long().sum()) + int(nev.clamp(0, K).long().sum()) * 8 + m * (16 + 4 + 8)
+    return _bound(read + m * sv.DECODE_HEAD * 4 + n_sub * 5 + n_ev * 16, 0)
+
+
+def _decode_check(torch, sv, walk, t) -> dict:
+    """decode_events on the card's walk outputs (rows, words, n_events,
+    meta) and the batch's (ref, qry, rlen, qlen) tensors, against
+    decode_events_plain on the same tensors (_decode_differ); with its
+    event-pair ms over TIMED_REPS launches, the plain version's ms and the
+    byte bound (_decode_bound)."""
+    args = (*walk, *t)
+    got = sv.decode_events(*args)
+    ms = _event_ms(torch, lambda: sv.decode_events(*args), TIMED_REPS)
+    plain_ms, want = _host_ms(torch, lambda: sv.decode_events_plain(*args))
+    status = got["head"][:, 0].cpu()
+    return {"ms": ms, "plain_ms": plain_ms, "bound": _decode_bound(walk, t, want["totals"].cpu()),
+            "differ": _decode_differ(got, want), "ok": int((status == sv.DECODE_OK).sum()),
+            "totals": want["totals"].tolist()}
+
+
+def _decode_kv(dec: dict) -> dict:
+    return {"decode_ms": round(dec["ms"], 4), "plain_decode_ms": round(dec["plain_ms"], 2),
+            "decode_bound_ms": round(dec["bound"]["bound_ms"], 6), "decode_ok": dec["ok"],
+            "decode_subs_events": json.dumps(dec["totals"]), "decode_problems_differ": json.dumps(dec["differ"])}
 
 
 def _decode_all(sv, arrays, out) -> tuple:
@@ -1653,7 +1723,7 @@ def _merge_run(torch, phase: str, label: str, halves: list, out: str, budget, n_
     say(f"{phase}.{label}_launches", launches=json.dumps(launches))
     say(f"{phase}.{label}_engines", report=json.dumps(report))
     say_launch_log(f"{phase}.{label}", kernel_log)
-    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+    for name, must in {"stripe_dp": True, "walk": True, "decode_events": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
                        "sketch": False, "chain": False}.items():
         if must and launches[name] <= 0:
             raise AssertionError(f"{phase}: {label} never launched {name}: {launches}")
@@ -1772,7 +1842,8 @@ def _mesh_ckpt_round(torch) -> dict:
     if equal != len(jobs) or exact != len(jobs):
         raise AssertionError(f"mesh_path: the 2-shard checkpoint round's Edits differ from one device's "
                              f"({equal} equal, {exact} exact of {len(jobs)})")
-    if launches["stripe_dp_ckpt"] <= 0 or launches["walk_ckpt"] <= 0 or launches["stripe_dp"] or launches["walk"]:
+    if (launches["stripe_dp_ckpt"] <= 0 or launches["walk_ckpt"] <= 0 or launches["decode_events"] <= 0
+            or launches["stripe_dp"] or launches["walk"]):
         raise AssertionError(f"mesh_path: the checkpoint round launched {launches}")
     if len(report["device_shards"]) != 2:
         raise AssertionError(f"mesh_path: the checkpoint round ran on {report['device_shards']}, not 2 shards")
@@ -1844,7 +1915,7 @@ def phase_mesh_path(torch, fa: str, main_graph: str, main_report: dict, work: st
         raise AssertionError(f"{phase}: the mesh build's graph differs from phase 4's")
     if broker["max_legs"] < 2:
         raise AssertionError(f"{phase}: no combined round held two merge threads' legs: {broker}")
-    for name, must in {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+    for name, must in {"stripe_dp": True, "walk": True, "decode_events": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
                        "sketch": False, "chain": False}.items():
         if must and launches[name] <= 0:
             raise AssertionError(f"{phase}: kernel {name} was never launched: {launches}")
@@ -1901,8 +1972,8 @@ def phase_cluster(torch, work: str) -> dict:
         raise AssertionError(f"{phase}: the group's sum is not the cluster's 4 shards")
     if not 1 <= claims <= 5:
         raise AssertionError(f"{phase}: {claims} merges claimed, not 1-5")
-    if launches["stripe_dp"] <= 0 or launches["walk"] <= 0:
-        raise AssertionError(f"{phase}: the workers never launched the DP and walk: {launches}")
+    if launches["stripe_dp"] <= 0 or launches["walk"] <= 0 or launches["decode_events"] <= 0:
+        raise AssertionError(f"{phase}: the workers never launched the DP, walk and decode: {launches}")
     return {"launches": launches, "wall_s": wall}
 
 
@@ -1945,7 +2016,7 @@ def phase_bench(torch) -> dict:
         raise AssertionError(f"{phase}: roundtrip {rep['roundtrip']!r}")
     if (align["engines"]["device_cells_frac"] or 0) < 0.5:
         raise AssertionError(f"{phase}: device_cells_frac {align['engines']['device_cells_frac']} < 0.5")
-    for name in ("stripe_dp", "walk"):
+    for name in ("stripe_dp", "walk", "decode_events"):
         if align["launches"][name] <= 0 or name not in align["kernel_ms"]:
             raise AssertionError(f"{phase}: {name} was not launched and timed: {align['launches']}, "
                                  f"{align['kernel_ms']}")
@@ -2162,7 +2233,7 @@ def phase_gated_path(torch, fa: str) -> dict:
     sketch and chain not."""
     out = _gated_build(torch, "phase11", fa)
     check_launched("phase11", out["launches"], out["kernels"],
-                   {"stripe_dp": True, "walk": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
+                   {"stripe_dp": True, "walk": True, "decode_events": True, "stripe_dp_ckpt": False, "walk_ckpt": False,
                     "sketch": False, "chain": False})
     return out
 
@@ -2202,7 +2273,7 @@ def phase_ckpt_route(torch, fa: str, record_budget: int = CKPT_ROUTE_RECORD_BUDG
     if counts["rate_decided"] < 1:
         raise AssertionError(f"{phase}: no group was decided by the two measured rates: {counts}")
     check_launched(phase, out["launches"], out["kernels"],
-                   {"stripe_dp_ckpt": True, "walk_ckpt": True, "sketch": False, "chain": False})
+                   {"stripe_dp_ckpt": True, "walk_ckpt": True, "decode_events": True, "sketch": False, "chain": False})
     return {**out, "ckpt": counts}
 
 
@@ -2242,7 +2313,9 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
     over every shape it was held at, and its times and bound at one shape
     where both were timed (for the sketch and chain, phase 6's own; the two
     DP modes and the chain also carry their dependency bound and which bound
-    binds)."""
+    binds). The decode's row gives its launches on each of those paths; its
+    max_abs_err counts the problems whose decode differed from the plain
+    version's at any shape of either route."""
     rows = []
     for name, (shape, phase, path) in {
         "stripe_dp": ((128, 10240), kern, main_path),
@@ -2275,6 +2348,23 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
             rows[-1]["mesh_launches"] = mesh_path["launches"][name]
         else:
             rows[-1]["mesh_launches"] = mesh_path["ckpt_launches"][name]
+    shape = (128, 10240)
+    ms, plain_ms, bound = kern["times"][shape]["decode_events"]
+    rows.append({
+        "name": "decode_events", "route": "cuda", "source": "pangraph_tpu_torch/csrc/walk.cu",
+        "replaces": "none: port-only, the reference decodes on the host (pangraph_tpu/ops/stripe_v2.py:1099)",
+        "launches": main_path["launches"]["decode_events"],
+        "max_abs_err": max(kern["worst"]["decode_events"], ckpt["worst"]["decode_events"]),
+        "ms": round(ms, 4), "plain_ms": round(plain_ms, 2), "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": None,
+        "shape": f"B={shape[0]} R={shape[1]} problems={dict(((b, r), n) for b, r, n in KERNEL_SHAPES)[shape]}",
+        "timed_by": "events", "long_tier_launches": long_tier["launches"]["decode_events"],
+        "ckpt_route_launches": route["launches"]["decode_events"],
+        "ckpt_route_device_ms": round(route["kernels"].get("decode_events", {"ms": 0.0})["ms"], 3),
+        "merge_launches": cli_path["launches"]["decode_events"], "bench_launches": bench["launches"]["decode_events"],
+        "gated_launches": gated["launches"]["decode_events"], "mesh_launches": mesh_path["launches"]["decode_events"],
+        "mesh_ckpt_launches": mesh_path["ckpt_launches"]["decode_events"],
+    })
     sketch_path = sc_path["sketch"][(19, 19)]
     for name, path, worst, shape in (
         ("sketch", sketch_path, max([sc["worst"]["sketch"]] + [x["err"] for x in sc_path["sketch"].values()]),
@@ -2311,7 +2401,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
-    v2 = {"stripe_dp": True, "walk": True, "sketch": False, "chain": False}
+    v2 = {"stripe_dp": True, "walk": True, "decode_events": True, "sketch": False, "chain": False}
 
     def timed(name: str, fn, *a, **k):
         """Run one phase and print its wall on a line of its own."""

@@ -1,6 +1,7 @@
 """Batched banded alignment: buckets jobs by length tier and band,
-runs the stripe DP and its walk (ops/stripe_v2.py) on the aligner's device,
-decodes the events on host, and retries boundary hits with doubled bands.
+runs the stripe DP, its walk and the decode of the walk's events
+(ops/stripe_v2.py) on the aligner's device, builds the Edits on the host,
+and retries boundary hits with doubled bands.
 
 This is the production replacement for per-sequence `map_variations`: all
 re-alignment jobs of a merge round (across every merge promise and
@@ -81,10 +82,12 @@ from pangraph_tpu_torch.align.params import BandedAlignParams, BandParameters
 from pangraph_tpu_torch.graph.edits import Del, Edit, Ins, Sub
 from pangraph_tpu_torch.graph.seq import IUPAC_MASK, as_seq
 from pangraph_tpu_torch.ops.stripe_v2 import (
+    DECODE_OK,
     DP_C,
     MAX_B,
     ckpt_windows,
-    edit_from_events,
+    decode_buffers,
+    decoded_edit,
     stripe_align,
     stripe_align_ckpt,
     walk_ckpt_buffers,
@@ -212,6 +215,8 @@ class BatchAligner:
     # problems per launch: one block each, enough to fill the card many times
     MAX_BATCH = 8192
 
+    # the stripe route's event capacity
+    V2_K_CAP = 16384
     # the checkpoint route's event capacity: denser jobs go to the host
     CKPT_K_CAP = 2048
 
@@ -264,9 +269,11 @@ class BatchAligner:
     # DP cells per engine
     ENGINE = {"host": 0, "device": 0}
     # bytes the device legs copy off the card (every fetched array) and the
-    # part of them the decode reads (each problem's meta row and event
-    # count, and its events where they did not overflow)
+    # part of them the host's decode reads (all of it: _fetch)
     FETCH = {"bytes": 0, "used_bytes": 0}
+    # problems of device launches whose Edit the card's decode gave, and
+    # those that went to the host fallback
+    DECODE = {"device": 0, "host": 0}
     _ENGINE_LOCK = threading.Lock()
     # (kind, n_jobs, cells, seconds, ref_bp): one row per leg's round
     # ("host", "mixed[n=<host jobs>,d=<device jobs>]"; its seconds are the
@@ -440,18 +447,27 @@ class BatchAligner:
             cls.FETCH[key] += nbytes
 
     @classmethod
+    def _decode_count(cls, device: int, host: int) -> None:
+        with cls._ENGINE_LOCK:
+            cls.DECODE["device"] += device
+            cls.DECODE["host"] += host
+
+    @classmethod
     def engine_report(cls) -> dict:
         """Per-engine DP-cell totals and the device's share of the cells;
-        the bytes fetched off the card and the part the decode read; device
+        the bytes fetched off the card and the part the decode read; the
+        device launches' problems by where their events were decoded; device
         cells per route, tier and shard; and the broker's combined rounds,
         the legs they held and the most legs in one."""
         with cls._ENGINE_LOCK:
             engines = dict(cls.ENGINE)
             fetch = dict(cls.FETCH)
+            decode = dict(cls.DECODE)
         out = {k: {"cells": int(c)} for k, c in engines.items()}
         tot = sum(engines.values())
         out["device_cells_frac"] = round(engines["device"] / tot, 4) if tot else None
         out["fetch"] = fetch
+        out["decode"] = decode
         routes, tiers = {}, {}
         broker = {"rounds": 0, "legs": 0, "max_legs": 0}
         with cls._ENGINE_LOCK:
@@ -497,6 +513,8 @@ class BatchAligner:
                 cls.ENGINE[k] = 0
             for k in cls.FETCH:
                 cls.FETCH[k] = 0
+            for k in cls.DECODE:
+                cls.DECODE[k] = 0
             cls.STATS.clear()
             cls.SHARDS.clear()
             cls.GATE_LOG.clear()
@@ -899,7 +917,7 @@ class BatchAligner:
                     K_cap = self.CKPT_K_CAP
                 else:
                     K_need = max(64, 64 + max_len // 256, 2 * max_hint) * bump
-                    K_cap = 16384
+                    K_cap = self.V2_K_CAP
                 K = 64
                 while K < K_need and K < K_cap:
                     K *= 4
@@ -1076,9 +1094,9 @@ class BatchAligner:
         cells, ticket)]): the legs' planned launches with equal (R_cap, B, K,
         route) merged, longest problems first, and split again at the
         memory rule's count (_launch_cap); run and fetched by _run_planned.
-        Returns (per leg [(job indices, K, fetched arrays of those jobs)],
-        the round's device cells where every launch was on the checkpoint
-        route, else None)."""
+        Returns (per leg [(job indices, their problems in the launch, K,
+        the launch's fetched arrays)], the round's device cells where every
+        launch was on the checkpoint route, else None)."""
         merged = {}
         for leg, (jobs, planned, _cells, _tk) in enumerate(batch):
             for sub, R_cap, B, K, ckpt in planned:
@@ -1110,7 +1128,7 @@ class BatchAligner:
                 by_leg[leg][0].append(i)
                 by_leg[leg][1].append(p)
             for leg, (idx, pos) in by_leg.items():
-                outs[leg].append((idx, K, {k: v[pos] for k, v in out.items()}))
+                outs[leg].append((idx, pos, K, out))
         return outs, (dev_cells if all(route == "ckpt" for route, _R, _B in groups) else None)
 
     def _stream_scope(self, shard: int):
@@ -1130,21 +1148,32 @@ class BatchAligner:
         bytes: its int16 records, or its carries and its input rows."""
         return ckpt_windows(R_cap, B) * 3 * B * 4 + R + Q if ckpt else R * B * 2
 
+    @staticmethod
+    def _decode_bytes(m: int, K: int, R: int) -> int:
+        """Device bytes of the decode's outputs for m problems of K event
+        slots padded to R reference bytes (stripe_v2.decode_buffers)."""
+        return sum(t.nbytes for t in decode_buffers(m, K, R, "meta").values())
+
     def _launch_cap(self, R_cap: int, B: int, ckpt: bool) -> int:
         """Problems a launch may hold: its device bytes may take a quarter of
         the budget, so that two rounds' launches can be resident at once."""
-        per_problem = self._problem_bytes(R_cap, B, ckpt, R_cap, R_cap)  # an upper bound
+        # an upper bound: the route's most event slots, and the tier's rows
+        K_cap = self.CKPT_K_CAP if ckpt else self.V2_K_CAP
+        per_problem = (self._problem_bytes(R_cap, B, ckpt, R_cap, R_cap)
+                       + self._decode_bytes(1, min(K_cap, R_cap), R_cap))
         return max(1, min(self.budget // 4 // per_problem, self.MAX_BATCH))
 
-    def _launch_bytes(self, jobs, sub, R_cap: int, B: int, ckpt: bool) -> int:
-        """Device bytes of one launch of jobs[i] for i in `sub`: its
-        problems' bytes, padded as _run_planned packs them, and the
-        checkpoint walk's scratch and walker state."""
+    def _launch_bytes(self, jobs, sub, R_cap: int, B: int, K: int, ckpt: bool) -> int:
+        """Device bytes of one launch of jobs[i] for i in `sub` with K event
+        slots: its problems' bytes, padded as _run_planned packs them, the
+        checkpoint walk's scratch and walker state, and the decode's
+        outputs."""
         m = len(sub)
         R = max(max(len(jobs[i].ref) for i in sub), 1)
         Q = max(max(len(jobs[i].qry) for i in sub), 1)
         walk = walk_ckpt_buffers(m, R, B, ckpt_windows(R_cap, B), "meta")[:2] if ckpt else ()
-        return m * self._problem_bytes(R_cap, B, ckpt, R, Q) + sum(t.nbytes for t in walk)
+        return (m * self._problem_bytes(R_cap, B, ckpt, R, Q) + sum(t.nbytes for t in walk)
+                + self._decode_bytes(m, K, R))
 
     def _run_planned(self, launches: list) -> list:
         """Run launches [(problems, R_cap, B, K, ckpt)], each problem a tuple
@@ -1164,8 +1193,8 @@ class BatchAligner:
             if launches_s:
                 dev = self.mesh.devices[s]
                 grants[dev] = grants.get(dev, 0) + max(
-                    self._launch_bytes([p[-1] for p in part], range(len(part)), R_cap, B, ckpt)
-                    for part, R_cap, B, _, ckpt in launches_s)
+                    self._launch_bytes([p[-1] for p in part], range(len(part)), R_cap, B, K, ckpt)
+                    for part, R_cap, B, K, ckpt in launches_s)
         self._mem_acquire(grants)
         try:
             launched = []
@@ -1202,35 +1231,43 @@ class BatchAligner:
                 fetched = []
                 for s, part, K, out in launched:
                     with self._stream_scope(s):
-                        arrays = {k: v.cpu().numpy() for k, v in out.items()}
-                    fetched.append((part, K, arrays))
-                    self._fetch_count("bytes", sum(a.nbytes for a in arrays.values()))
+                        fetched.append((part, K, self._fetch(out)))
         finally:
             self._mem_release(grants)
         return fetched
 
+    def _fetch(self, out: dict) -> dict:
+        """Copy a launch's decode off the card (stripe_v2.decode_events):
+        its head, its totals (one small read, which waits for the stream),
+        and the written part of each packed array, all of which _decode
+        reads. The walk's [m, K] events stay on the card."""
+        totals = out["totals"].cpu().numpy()
+        n_sub, n_ev = totals.tolist()
+        got = {"head": out["head"].cpu().numpy(), "totals": totals,
+               **{k: out[k][:n].cpu().numpy() for k, n in (("sub_pos", n_sub), ("sub_alt", n_sub), ("evs", n_ev))}}
+        nbytes = sum(a.nbytes for a in got.values())
+        self._fetch_count("bytes", nbytes)
+        self._fetch_count("used_bytes", nbytes)
+        return got
+
     def _decode(self, jobs: list, fetched: list, edits, boundary, overflow) -> None:
-        """Decode a leg's fetched events ([(job indices, K, arrays)]) into
-        its Edits, boundary and overflow flags."""
-        used = 0
+        """Turn a leg's fetched launches ([(job indices, their problems in
+        the launch, K, arrays)]) into its Edits, boundary and overflow
+        flags, each Edit from the card's decode."""
+        on_card = on_host = 0
         with trace.span("align.decode"):
-            for idx, K, out in fetched:
-                meta, n_events, rows, words = out["meta"], out["n_events"], out["rows"], out["words"]
-                # read per problem: its meta row and event count, and an
-                # entry of rows and of words ([m, K]) per event
-                fixed = meta[0].nbytes + n_events.itemsize
-                per_event = rows.itemsize + words.itemsize
-                for s, i in enumerate(idx):
-                    j = jobs[i]
-                    boundary[i] = bool(meta[s, 2])
-                    overflow[i] = int(n_events[s]) > K
-                    used += fixed
+            for idx, pos, K, out in fetched:
+                head = out["head"][pos].tolist()
+                sub_pos, sub_alt, evs = out["sub_pos"].tolist(), out["sub_alt"].tolist(), out["evs"].tolist()
+                for i, h in zip(idx, head):
+                    status, bnd, n = h[:3]
+                    boundary[i] = bool(bnd)
+                    overflow[i] = n > K
                     if overflow[i]:
                         continue  # retried with a bigger event capacity
-                    used += int(n_events[s]) * per_event
-                    edit, ok = edit_from_events(rows[s], words[s], n_events[s], meta[s], j.ref, j.qry)
-                    if ok:
-                        edits[i] = edit
+                    if status == DECODE_OK:
+                        edits[i] = decoded_edit(h, sub_pos, sub_alt, evs, jobs[i].qry)
+                        on_card += 1
                     elif boundary[i]:
                         # band hit produced a degenerate edge-riding path:
                         # leave edits[i]=None so align_many retries with a
@@ -1239,8 +1276,9 @@ class BatchAligner:
                     else:  # dead walk without boundary: rare; host fallback
                         # count=False: this job's cells are already counted
                         # as device cells
-                        edits[i] = self._host_fallback(j, False)
-        self._fetch_count("used_bytes", used)
+                        edits[i] = self._host_fallback(jobs[i], False)
+                        on_host += 1
+        self._decode_count(on_card, on_host)
 
     def _count_shard(self, shard: int, cells: int) -> None:
         with self._ENGINE_LOCK:

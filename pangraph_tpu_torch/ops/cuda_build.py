@@ -41,6 +41,9 @@ _ARGTYPES = {
     "stripe_dp_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # rec, rec_rows, B, rlen, qlen, ms, W, seg, K, rows, words, n_events, meta, m, stream
     "walk_launch": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # rows, words, n_events, meta, K, ref, ref_stride, qry, qry_stride, rlen, qlen, head, totals,
+    # sub_pos, sub_alt, evs, m, stream
+    "decode_events_launch": [_P, _P, _P, _P, _I, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B, m, stream
     "stripe_dp_ckpt_launch": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ref, ref_stride, qry, qry_stride, rlen, qlen, ms, W, iupac, ckpt, n_windows, WV, B,

@@ -1,6 +1,7 @@
 """Banded stripe DP and its run-jump traceback: the CUDA kernels of the
-alignment path (the DP and the walk, and their checkpoint pair), their
-plain PyTorch versions, and the host decode.
+alignment path (the DP and the walk, their checkpoint pair, and the decode
+of the walk's events into edits), their plain PyTorch versions, and the
+host decode.
 
 The reference runs these as Pallas kernels in 128-row window coordinates
 (pangraph_tpu/ops/stripe_v2.py). Here the records are kept in band
@@ -21,10 +22,11 @@ when it needs them, and crosses windows that a match run covers without
 reading any.
 
 Each kernel has a wrapper (`stripe_dp`, `walk`, `stripe_dp_ckpt`,
-`walk_ckpt`) that takes tensors: on a CUDA tensor it launches the kernel on
-the current stream (or raises), on a CPU tensor it runs the plain version
-(`stripe_dp_plain`, `walk_plain`, ...), which the tests hold against the
-Pallas kernels element for element.
+`walk_ckpt`, `decode_events`) that takes tensors: on a CUDA tensor it
+launches the kernel on the current stream (or raises), on a CPU tensor it
+runs the plain version (`stripe_dp_plain`, `walk_plain`, ...), which the
+tests hold against the Pallas kernels element for element (the decode,
+which has no Pallas kernel, against the host decode `edit_from_events`).
 
 Scoring matches the reference aligner: match 3, mismatch -1 by IUPAC mask
 overlap, N (mask 15) on either side 2, gap open 6, gap extend 0, free
@@ -67,7 +69,7 @@ MAX_B = 2048
 
 # kernel launches, per wrapper: one is added where a kernel is launched and
 # nowhere else (the plain versions do not count)
-LAUNCHES = {"stripe_dp": 0, "walk": 0, "stripe_dp_ckpt": 0, "walk_ckpt": 0}
+LAUNCHES = {"stripe_dp": 0, "walk": 0, "stripe_dp_ckpt": 0, "walk_ckpt": 0, "decode_events": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -83,10 +85,10 @@ def _count_launch(name: str) -> None:
 
 
 # Kernel launch log, off unless a caller sets it to a list: each launch of
-# the DP, the walk or the checkpoint pair then appends (name, B, R,
-# problems, device index, start, end, stream), a CUDA event pair recorded
-# on the launch's stream around the kernel, and that stream's handle
-# (`cuda_stream`). Nothing here synchronizes; the caller reads the events
+# the DP, the walk, the checkpoint pair or the decode (B 0) then appends
+# (name, B, R, problems, device index, start, end, stream), a CUDA event
+# pair recorded on the launch's stream around the kernel, and that stream's
+# handle (`cuda_stream`). Nothing here synchronizes; the caller reads the events
 # after its own synchronize.
 KERNEL_TIMING = None
 
@@ -787,6 +789,188 @@ def _walk_ckpt_launch(ckpt, ref, qry, rlen, qlen, ms, W, K: int):
     return rows, words, nev, meta
 
 
+# --------------------------------------------------------------- decode
+
+# a problem's decode status (column 0 of the head): no Edit (a dead walk,
+# n_events > K or a length mismatch, where edit_from_events's ok is False;
+# or events out of order or past the reference, which only a faulty walk
+# gives), or the events are decoded
+DECODE_FAILED, DECODE_OK = 0, 1
+# the head's columns: status, boundary (meta[2]), n_events, q0 (the leading
+# insertion's length), the problem's substitutions (offset, count) in
+# sub_pos/sub_alt and its events (offset, count) in evs
+DECODE_HEAD = 8
+
+
+def _check_decode_inputs(rows, words, n_events, meta, ref, qry, rlen, qlen) -> None:
+    if rows.dim() != 2 or rows.shape != words.shape:
+        raise ValueError("rows and words must be [m, K] tensors of one shape")
+    m = rows.shape[0]
+    for name, t in (("rows", rows), ("words", words), ("meta", meta)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != ref.device:
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {ref.device}")
+    if meta.shape != (m, 4):
+        raise ValueError(f"meta must be [{m}, 4]")
+    if ref.dim() != 2 or qry.dim() != 2 or ref.shape[0] != m or qry.shape[0] != m:
+        raise ValueError(f"ref and qry must be [{m}, R] and [{m}, Q] tensors")
+    if ref.dtype != torch.uint8 or qry.dtype != torch.uint8 or not (ref.is_contiguous() and qry.is_contiguous()):
+        raise ValueError("ref and qry must be contiguous uint8 sequence bytes")
+    if qry.device != ref.device:
+        raise ValueError(f"qry is on {qry.device}, expected {ref.device}")
+    _check_problem_vectors(m, ref.device, n_events=n_events, rlen=rlen, qlen=qlen)
+
+
+def decode_buffers(m: int, K: int, R: int, device) -> dict:
+    """The outputs of a decode of m problems of K event slots and R
+    reference bytes (see decode_events), unwritten but for totals (0). The
+    packed arrays take what any such launch can write: a problem's
+    substitutions are rows, and each of its events, in order, moves past at
+    least one row. On the "meta" device it allocates nothing and gives the
+    sizes."""
+    S, E = m * R, m * min(K, R)
+    return {"head": torch.empty((m, DECODE_HEAD), dtype=torch.int32, device=device),
+            "totals": torch.zeros(2, dtype=torch.int32, device=device),
+            "sub_pos": torch.empty(S, dtype=torch.int32, device=device),
+            "sub_alt": torch.empty(S, dtype=torch.uint8, device=device),
+            "evs": torch.empty((E, 4), dtype=torch.int32, device=device)}
+
+
+def decode_events_plain(rows, words, n_events, meta, ref, qry, rlen, qlen) -> dict:
+    """Plain version of the decode kernel, vectorized over problems: the
+    same inputs and outputs as `decode_events`, the packed arrays in problem
+    order."""
+    m, K = rows.shape
+    R, Q = ref.shape[1], qry.shape[1]
+    dev = ref.device
+    n, rl, ql = n_events.long(), rlen.long()[:, None], qlen.long()
+    meta = meta.long()
+    q0 = meta[:, 0] + meta[:, 3]
+    failed = (meta[:, 1] != 0) | (n > K) | (n < 0) | (q0 < 0)
+    nn = torch.where(failed, 0, n)
+    # events in forward order: event e is walk slot n - 1 - e
+    e = torch.arange(K, device=dev)[None, :]
+    live = e < nn[:, None]
+    slot = (nn[:, None] - 1 - e).clamp(min=0)
+    x, w = rows.long().gather(1, slot), words.long().gather(1, slot)
+    is_d, ins = (w & 3) == OP_D, (w >> 2) & 0x7FFF
+    dl = torch.where(is_d, w >> 17, 0)
+    local_bad = torch.where(is_d, (dl < 1) | (x > rl - dl), ((w & 3) != OP_M) | (x > rl - 1))
+    # the first row past the event; each event starts at or after the last one's
+    nxt = torch.where(local_bad, rl, torch.where(is_d, x + dl, x + 1))
+    start = torch.cat([torch.zeros((m, 1), dtype=torch.long, device=dev), nxt[:, :-1]], 1)
+    failed |= (live & (local_bad | (x < start))).any(1)
+    delta = torch.where(live, ins - dl, 0)
+    csum = delta.cumsum(1)
+    ok = ~failed & (rl[:, 0] + q0 + csum[:, -1] == ql)
+    status = torch.where(ok, DECODE_OK, DECODE_FAILED)
+
+    # rows: a row's query position moves by each earlier event's delta (at
+    # the event's nxt); deleted rows have none
+    keep_ev = live & ok[:, None]
+    shift = torch.zeros((m, R + 1), dtype=torch.long, device=dev)
+    shift.scatter_add_(1, torch.where(keep_ev, nxt, R), torch.where(keep_ev, delta, 0))
+    gone = keep_ev & is_d
+    dmark = torch.zeros((m, R + 1), dtype=torch.long, device=dev)
+    dmark.scatter_add_(1, torch.where(gone, x, R), gone.long())
+    dmark.scatter_add_(1, torch.where(gone, x + dl, R), -gone.long())
+    i = torch.arange(R, device=dev)[None, :]
+    q_of = i + q0[:, None] + shift.cumsum(1)[:, :R]
+    keep = ok[:, None] & (i < rl) & (dmark.cumsum(1)[:, :R] == 0)
+    qb = qry.gather(1, q_of.clamp(0, Q - 1)) if Q else torch.zeros_like(ref)
+    sp, si = (keep & (ref != qb)).nonzero(as_tuple=True)
+    em = keep_ev & (is_d | (ins > 0))
+    ep, ee = em.nonzero(as_tuple=True)
+    q_start = torch.where(is_d, x, x + 1) + q0[:, None] + csum - delta
+    ev_rows = torch.stack([x, dl, q_start, ins], 2)[ep, ee]
+
+    out = {k: t.zero_() for k, t in decode_buffers(m, K, R, dev).items()}
+    out["sub_pos"][: len(si)] = si.int()
+    out["sub_alt"][: len(si)] = qb[sp, si]
+    out["evs"][: len(ep)] = ev_rows.int()
+    sub_cnt = torch.bincount(sp, minlength=m)
+    ev_cnt = torch.bincount(ep, minlength=m)
+    out["head"][:] = torch.stack([status, meta[:, 2], n, q0, sub_cnt.cumsum(0) - sub_cnt, sub_cnt,
+                                  ev_cnt.cumsum(0) - ev_cnt, ev_cnt], 1)
+    out["totals"][:] = torch.tensor([len(si), len(ep)])
+    return out
+
+
+def decode_events(rows, words, n_events, meta, ref, qry, rlen, qlen) -> dict:
+    """The walk's events -> each problem's edit, packed: what
+    `edit_from_events` returns, for every problem of a launch at once.
+
+    Takes the walk's outputs (rows, words [m, K], n_events [m], meta [m, 4]
+    int32) and the DP's inputs (ref [m, R], qry [m, Q] uint8, rlen, qlen
+    [m] int32). Returns a dict of tensors: head [m, DECODE_HEAD] int32
+    (status, boundary, n_events, q0, substitution offset and count, event
+    offset and count); totals [2] int32, the substitutions and events
+    written; sub_pos (int32, reference positions) and sub_alt (uint8, the
+    query's bytes there), each problem's substitutions in ascending
+    position; evs [., 4] int32, each problem's events that delete or insert
+    in forward order: (row, deletion length, query start of the insertion,
+    insertion length). A deletion is Del(row, len); an insertion sits before
+    reference position row + max(deletion length, 1). Status DECODE_OK
+    where edit_from_events's ok is True, else DECODE_FAILED, and also where
+    the events are out of order or past the reference (a faulty walk, to
+    which edit_from_events gives no error); a failed problem's counts are
+    0. The packed arrays are
+    decode_buffers(m, K, R)'s, of which `totals` entries are written; the
+    offsets are each problem's own (on CUDA in no fixed order between
+    problems). On a CUDA tensor this launches csrc/walk.cu's decode kernel
+    (the reference decodes on the host, so it replaces no Pallas kernel); on
+    a CPU tensor it runs decode_events_plain."""
+    _check_decode_inputs(rows, words, n_events, meta, ref, qry, rlen, qlen)
+    if ref.device.type == "cpu":
+        return decode_events_plain(rows, words, n_events, meta, ref, qry, rlen, qlen)
+    return _decode_events_launch(rows, words, n_events, meta, ref, qry, rlen, qlen)
+
+
+def _decode_events_launch(rows, words, n_events, meta, ref, qry, rlen, qlen) -> dict:
+    """decode_events on CUDA tensors: one launch, no read of a device value."""
+    from pangraph_tpu_torch.ops import cuda_build
+
+    m, K = rows.shape
+    R = ref.shape[1]
+    dev = ref.device
+    out = decode_buffers(m, K, R, dev)
+    if m == 0:
+        return out
+    lib = cuda_build.lib("walk.cu")
+    with torch.cuda.device(dev):
+        ev = _launch_events(dev)
+        rc = lib.decode_events_launch(
+            _ptr(rows), _ptr(words), _ptr(n_events), _ptr(meta), K, _ptr(ref), ref.stride(0), _ptr(qry),
+            qry.stride(0), _ptr(rlen), _ptr(qlen),
+            *(_ptr(out[k]) for k in ("head", "totals", "sub_pos", "sub_alt", "evs")), m, _stream(dev),
+        )
+        _log_launch(ev, "decode_events", 0, R, m, dev)
+    if rc != 0:
+        raise RuntimeError(f"decode_events kernel launch failed: CUDA error {rc}")
+    _count_launch("decode_events")
+    return out
+
+
+_CHR = tuple(map(chr, range(256)))
+
+
+def decoded_edit(head_row, sub_pos: list, sub_alt: list, evs: list, qry: np.ndarray):
+    """The Edit of one problem that decode_events decoded (its head row's
+    status DECODE_OK), from the fetched packed arrays as lists; equal to
+    edit_from_events's."""
+    from pangraph_tpu_torch.graph.edits import Del, Edit, Ins, Sub
+
+    _status, _bnd, _n, q0, so, sc, eo, ec = head_row
+    subs = [Sub(p, _CHR[a]) for p, a in zip(sub_pos[so : so + sc], sub_alt[so : so + sc])]
+    dels = []
+    inss = [Ins(0, bytes(qry[:q0]).decode())] if q0 else []
+    for x, dl, qs, il in evs[eo : eo + ec]:
+        if dl:
+            dels.append(Del(x, dl))
+        if il:
+            inss.append(Ins(x + (dl or 1), bytes(qry[qs : qs + il]).decode()))
+    return Edit(subs=subs, dels=dels, inss=inss)
+
+
 # --------------------------------------------------------------- pipeline
 
 
@@ -828,11 +1012,12 @@ def _put(device, *arrays) -> list:
 
 
 def stripe_align(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, seg: int, device) -> dict:
-    """DP then walk for one batch on `device`. Inputs are host numpy arrays
-    (ref_seq [m, R] and qry_seq [m, Q] uint8 bytes, the rest [m] int32); the
-    result dict holds rows/words [m, K], n_events [m] and meta [m, 4] as
-    tensors on `device` (not yet synchronized). The inputs are checked on
-    the host, so on a CUDA device nothing here waits for the stream."""
+    """DP, walk and decode for one batch on `device`. Inputs are host numpy
+    arrays (ref_seq [m, R] and qry_seq [m, Q] uint8 bytes, the rest [m]
+    int32); the result dict holds rows/words [m, K], n_events [m] and
+    meta [m, 4], and decode_events's outputs, as tensors on `device` (not
+    yet synchronized). The inputs are checked on the host, so on a CUDA
+    device nothing here waits for the stream."""
     _check_batch(ref_seq, qry_seq, rlen, qlen, ms, W, B, K, ref_seq.shape[1])
     if seg < 1:
         raise ValueError("seg must be positive")
@@ -843,13 +1028,15 @@ def stripe_align(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, seg: int, 
     else:
         rec = stripe_dp(ref, qry, rl, ql, msv, Wv, B)
         rows, words, nev, meta = walk(rec, rl, ql, msv, Wv, seg, K)
-    return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
+    del rec  # its memory can take the decode's outputs
+    return {"rows": rows, "words": words, "n_events": nev, "meta": meta,
+            **decode_events(rows, words, nev, meta, ref, qry, rl, ql)}
 
 
 def stripe_align_ckpt(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, R_cap: int, device) -> dict:
-    """The checkpoint route of `stripe_align`: stripe_dp_ckpt then walk_ckpt,
-    with the same inputs and output dict. R_cap is the length tier (it sets
-    the number of windows, as in the reference)."""
+    """The checkpoint route of `stripe_align`: stripe_dp_ckpt, walk_ckpt
+    and the decode, with the same inputs and output dict. R_cap is the
+    length tier (it sets the number of windows, as in the reference)."""
     if R_cap < ref_seq.shape[1]:
         raise ValueError(f"R_cap={R_cap} is below the rows of ref ({ref_seq.shape[1]})")
     _check_batch(ref_seq, qry_seq, rlen, qlen, ms, W, B, K, ckpt_windows(R_cap, B) * ckpt_layout(B))
@@ -860,7 +1047,9 @@ def stripe_align_ckpt(ref_seq, qry_seq, rlen, qlen, ms, W, B: int, K: int, R_cap
     else:
         ckpt = stripe_dp_ckpt(ref, qry, rl, ql, msv, Wv, B, R_cap)
         rows, words, nev, meta = walk_ckpt(ckpt, ref, qry, rl, ql, msv, Wv, K)
-    return {"rows": rows, "words": words, "n_events": nev, "meta": meta}
+    del ckpt  # its memory can take the decode's outputs
+    return {"rows": rows, "words": words, "n_events": nev, "meta": meta,
+            **decode_events(rows, words, nev, meta, ref, qry, rl, ql)}
 
 
 def edit_from_events(rows, words, n_events, meta, ref: np.ndarray, qry: np.ndarray):

@@ -80,7 +80,7 @@ def test_dp_cells_count_round_level_rows_only():
     assert any(s[0].startswith("broker[") for s in stats)
     assert align["dp_cells"] < sum(s[2] for s in stats)
     assert align["engines"]["device_cells_frac"] == 1.0
-    assert align["launches"] == {"stripe_dp": 0, "walk": 0, "stripe_dp_ckpt": 0, "walk_ckpt": 0}
+    assert align["launches"] == {"stripe_dp": 0, "walk": 0, "stripe_dp_ckpt": 0, "walk_ckpt": 0, "decode_events": 0}
 
 
 def test_repeats_share_one_graph_hash(monkeypatch):

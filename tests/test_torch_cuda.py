@@ -284,7 +284,8 @@ def test_gated_round_on_the_card(monkeypatch):
 def test_batch_launches_do_not_wait_for_the_stream(ckpt):
     """stripe_align and stripe_align_ckpt (the batch path) upload and launch
     without a synchronizing call: under torch's sync debug mode "error" they
-    queue everything, and their outputs equal the plain versions'."""
+    queue everything, the decode included, and their outputs equal the plain
+    versions'."""
     need_cuda()
     rng = np.random.default_rng(23)
     B, K, R_cap = 128, 256, 4096
@@ -307,6 +308,126 @@ def test_batch_launches_do_not_wait_for_the_stream(ckpt):
         n = min(int(want["n_events"][s]), K)
         assert torch.equal(got["rows"][s, :n], want["rows"][s, :n])
         assert torch.equal(got["words"][s, :n], want["words"][s, :n])
+    assert_decodes_equal(out, want)
+
+
+def decode_pairs(rng, m, R_cap, deletions_only=False):
+    """m (ref, qry, 0) of lengths up to the tier R_cap, and IUPAC codes in
+    ref: 10 substitutions a kb and 12 indels, or only deletions (12 runs),
+    which an alignment takes without a substitution."""
+    out = []
+    for _ in range(m):
+        n = int(rng.integers(R_cap * 3 // 5, R_cap - 64))
+        r = ACGT[rng.integers(0, 4, n)]
+        r[rng.choice(n, 4, replace=False)] = IUPAC[rng.integers(0, len(IUPAC), 4)]
+        if deletions_only:
+            starts = np.sort(rng.choice(np.arange(10, n - 20, 12), 12, replace=False))
+            q = np.delete(r, np.concatenate([np.arange(a, a + int(rng.integers(1, 6))) for a in starts]))
+        else:
+            q = mutate(r, rng, n // 100, 12)
+        out.append((r, q, 0))
+    return out
+
+
+def run_route(route, arrays, B, K, R_cap):
+    if route == "ckpt":
+        return sv.stripe_align_ckpt(*arrays, B, K, R_cap, "cuda")
+    return sv.stripe_align(*arrays, B, K, sv.walk_segment(R_cap, B), "cuda")
+
+
+def plain_decode(walk, arrays):
+    """decode_events_plain on the CPU from the card's walk outputs."""
+    return sv.decode_events_plain(*(walk[k].cpu() for k in ("rows", "words", "n_events", "meta")),
+                                  *(torch.from_numpy(a) for a in arrays[:4]))
+
+
+def assert_decodes_equal(got, want):
+    """The card's decode against the plain one: every head column but the
+    offsets, the totals, and each problem's substitutions and events; the
+    card's reserved spans tile its written prefix."""
+    got = {k: v.cpu() for k, v in got.items()}
+    assert torch.equal(got["totals"], want["totals"])
+    cols = [0, 1, 2, 3, 5, 7]
+    assert torch.equal(got["head"][:, cols], want["head"][:, cols])
+    for (a, n, col) in ((4, 5, ("sub_pos", "sub_alt")), (6, 7, ("evs",))):
+        spans = sorted((int(h[a]), int(h[n])) for h in got["head"])
+        end = 0
+        for o, c in spans:
+            assert o == end or c == 0
+            end = max(end, o + c)
+        assert end == int(got["totals"][0 if a == 4 else 1])
+        for hg, hw in zip(got["head"].tolist(), want["head"].tolist()):
+            for k in col:
+                assert torch.equal(got[k][hg[a] : hg[a] + hg[n]], want[k][hw[a] : hw[a] + hw[n]])
+
+
+# the headline's length tiers and bands (PERF.md §4)
+DECODE_SHAPES = [(4096, 128), (10240, 512), (16384, 1408), (65536, 1664), (131072, 1920), (131072, 128)]
+
+
+@pytest.mark.parametrize("route", ["stripe", "ckpt"])
+@pytest.mark.parametrize("R_cap,B", DECODE_SHAPES)
+def test_decode_kernel_matches_plain_version(R_cap, B, route):
+    """decode_events on the card after the walk (stripe_align) or the
+    checkpoint walk (stripe_align_ckpt) equals decode_events_plain on the
+    same walk outputs, problem for problem."""
+    need_cuda()
+    rng = np.random.default_rng(R_cap + B)
+    K = 1024
+    arrays = [a.numpy() for a in batch(decode_pairs(rng, 4, R_cap), B)]
+    before = sv.LAUNCHES["decode_events"]
+    out = run_route(route, arrays, B, K, R_cap)
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["decode_events"] == before + 1
+    want = plain_decode(out, arrays)
+    assert (want["head"][:, 0] == sv.DECODE_OK).all() and int(want["totals"][0]) > 0
+    assert_decodes_equal(out, want)
+
+
+@pytest.mark.parametrize("kind", ["dead", "out_of_order", "no_substitutions"])
+def test_decode_kernel_launches_of_one_kind(kind):
+    """A launch whose every walk died and one whose events are out of order,
+    as only a faulty walk gives them (both all DECODE_FAILED, nothing
+    written), and one with deletions and no substitution (totals[0] == 0):
+    the kernel equals the plain version."""
+    need_cuda()
+    rng = np.random.default_rng(41)
+    R_cap, B, K = 10240, 256, 256
+    prs = decode_pairs(rng, 6, R_cap, deletions_only=kind == "no_substitutions")
+    arrays = [a.numpy() for a in batch(prs, B)]
+    out = run_route("stripe", arrays, B, K, R_cap)
+    walk = {k: out[k].clone() for k in ("rows", "words", "n_events", "meta")}
+    if kind == "dead":
+        walk["meta"][:, 1] = 1
+    elif kind == "out_of_order":
+        assert bool((walk["n_events"] >= 2).all())
+        walk["rows"][:, :2] = walk["rows"][:, :2].flip(1).clone()
+        walk["words"][:, :2] = walk["words"][:, :2].flip(1).clone()
+    dev = torch.device("cuda")
+    got = sv.decode_events(*walk.values(), *(torch.from_numpy(a).to(dev) for a in arrays[:4]))
+    want = plain_decode(walk, arrays)
+    status = {"dead": sv.DECODE_FAILED, "out_of_order": sv.DECODE_FAILED, "no_substitutions": sv.DECODE_OK}[kind]
+    assert (want["head"][:, 0] == status).all()
+    assert int(want["totals"][0]) == 0 and (int(want["totals"][1]) > 0) == (kind == "no_substitutions")
+    assert_decodes_equal(got, want)
+
+
+@pytest.mark.parametrize("ckpt_bytes", [None, 0], ids=["stripe", "ckpt"])
+def test_packed_fetch_reads_every_byte_it_copies(ckpt_bytes):
+    """On the card the aligner fetches each launch's head, totals and the
+    written part of the packed arrays, and reads all of it
+    (engine_report()["fetch"]: used_bytes == bytes); every problem is
+    decoded on the card, to the CPU aligner's Edits."""
+    need_cuda()
+    rng = np.random.default_rng(9)
+    jobs = [AlignJob(r, q, BandParameters(ms, 20)) for r, q, ms in pairs(rng, 24, 200, 6000)]
+    cpu = BatchAligner(BandedAlignParams(), 5, 4, device="cpu", ckpt_paths_bytes=ckpt_bytes).align_many(jobs)
+    BatchAligner.reset_engine_stats()
+    gpu = BatchAligner(BandedAlignParams(), 5, 4, device="cuda", ckpt_paths_bytes=ckpt_bytes).align_many(jobs)
+    report = BatchAligner.engine_report()
+    assert gpu == cpu
+    assert report["decode"]["host"] == 0 and report["decode"]["device"] >= len(jobs)
+    assert 0 < report["fetch"]["used_bytes"] == report["fetch"]["bytes"]
 
 
 def _codes(rng, m, L_pad, lengths):

@@ -402,15 +402,23 @@ def test_launch_bytes_charge_the_walk_scratch(monkeypatch):
     """A checkpoint launch's device bytes are its carries and input rows and
     exactly what walk_ckpt_cuda allocates for its walk (scratch and walker
     state, walk_ckpt_buffers), at the default budget and at one that forces
-    waves; a v2 launch's are its records."""
+    waves; a v2 launch's are its records; both add exactly what the decode
+    of a launch of their K allocates (its outputs on the CPU)."""
     jobs = routing_jobs()
     al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu")
     sub = [0, 1, 4]
     R = max(len(jobs[i].ref) for i in sub)
     Q = max(len(jobs[i].qry) for i in sub)
+    K = 256
+    m = len(sub)
+    walk = [torch.zeros(shape, dtype=torch.int32) for shape in ((m, K), (m, K), (m,), (m, 4))]
+    seqs = [torch.zeros((m, n), dtype=torch.uint8) for n in (R, Q)]
+    lens = [torch.full((m,), n, dtype=torch.int32) for n in (R, Q)]
+    decoded = sv.decode_events(*walk, *seqs, *lens)
+    decode = sum(t.nbytes for t in decoded.values())
     for budget in (sv.WALK_CKPT_SCRATCH_BYTES, 3 * sv.ckpt_layout(128) * 128 * 2):
         monkeypatch.setattr(sv, "WALK_CKPT_SCRATCH_BYTES", budget)
-        scratch, state, _waves = sv.walk_ckpt_buffers(len(sub), R, 128, sv.ckpt_windows(10240, 128), "cpu")
-        carries = len(sub) * al._problem_bytes(10240, 128, True, R, Q)
-        assert al._launch_bytes(jobs, sub, 10240, 128, True) == carries + scratch.nbytes + state.nbytes
-    assert al._launch_bytes(jobs, sub, 10240, 128, False) == len(sub) * R * 128 * 2
+        scratch, state, _waves = sv.walk_ckpt_buffers(m, R, 128, sv.ckpt_windows(10240, 128), "cpu")
+        carries = m * al._problem_bytes(10240, 128, True, R, Q)
+        assert al._launch_bytes(jobs, sub, 10240, 128, K, True) == carries + scratch.nbytes + state.nbytes + decode
+    assert al._launch_bytes(jobs, sub, 10240, 128, K, False) == m * R * 128 * 2 + decode
