@@ -1,15 +1,22 @@
-"""The benchmark's own copy of the port's synthetic pangenome generator
-(`make_accessory_pangenome` of `pangraph_tpu_torch/utils/synth.py`): the
-same random draws in the same order, so the same genomes byte for byte
-for the same arguments and seed.
+"""The benchmark's genome generators, found by name as files: a
+configuration's `genomes.generator` names `port_bench/genomes/<name>.py`,
+which defines `make(n_genomes, genome_len, seed, **arguments)` and returns
+the genomes as (name, uint8 array) pairs. Nothing here or there imports
+the program.
 
-The port applies each genome's short indels by `del`/insert on a Python
-list of its bases, which costs seconds per 4.6 Mbp genome; here they go
-through a piece table and one concatenation. Genomes are returned as
-(name, uint8 array) pairs; nothing here imports the program."""
+Here too the mutation model the port's generators share
+(`pangraph_tpu_torch/utils/synth.py:_mutate`), with the same random draws
+in the same order. The port applies each genome's short indels by
+`del`/insert on a Python list of its bases, which costs seconds per 4.6 Mbp
+genome; here they go through a piece table and one concatenation."""
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -35,7 +42,7 @@ def _split(pieces: list, pos: int) -> int:
     return len(pieces)
 
 
-def _mutate(g: np.ndarray, rng, sub_rate: float) -> np.ndarray:
+def mutate(g: np.ndarray, rng, sub_rate: float) -> np.ndarray:
     """synth._mutate: ~sub_rate substitutions, ~1 short indel per 15 kb,
     1-2 inversions of 3-10 kb, and a circular rotation."""
     length = len(g)
@@ -69,74 +76,32 @@ def _mutate(g: np.ndarray, rng, sub_rate: float) -> np.ndarray:
     return np.roll(g, int(rng.integers(0, len(g))))
 
 
-def accessory_pangenome(n_genomes: int, genome_len: int, seed: int = 0, sub_rate: float = 0.005,
-                        n_seg: int = None, core_frac_of_genome: float = 0.72) -> list:
-    """synth.make_accessory_pangenome: a shared core interleaved with
-    accessory segments of bimodal presence and IS-like repeats at 2-4 loci,
-    then `_mutate` per genome."""
-    rng = np.random.default_rng(seed)
-    core_len = int(genome_len * core_frac_of_genome)
-    acc_target = genome_len - core_len
-    lo = max(300, min(1_000, genome_len // 500))
-    hi = max(2 * lo, min(25_000, genome_len // 200))
-    mean_seg = (np.exp(np.log(hi)) - np.exp(np.log(lo))) / max(np.log(hi) - np.log(lo), 1e-9)
-    if n_seg is None:
-        n_seg = int(min(acc_target * 3.5 / mean_seg, core_len / 2_000))
-        n_seg = max(12, n_seg)
-    seg_lens = np.exp(rng.uniform(np.log(lo), np.log(hi), n_seg)).astype(int)
-    common = rng.random(n_seg) < 0.25
-    common_bp = int((seg_lens * common).sum())
-    rare_bp = int((seg_lens * ~common).sum())
-    p_common = 0.8
-    p_rare = float(np.clip((acc_target - p_common * common_bp) / max(rare_bp, 1), 0.02, 0.6))
-    pres_p = np.where(common, p_common, p_rare)
-    loci = np.sort(rng.choice(core_len, n_seg, replace=False))
-    seg_seqs = [ACGT[rng.integers(0, 4, L)] for L in seg_lens]
-    n_rep = max(2, n_seg // 60)
-    rep_seqs = [ACGT[rng.integers(0, 4, int(L))] for L in rng.integers(600, 1600, n_rep)]
-    events = sorted(
-        [(int(loci[i]), "seg", i, 0.0) for i in range(n_seg)]
-        + [
-            (int(rng.integers(0, core_len)), "rep", ri, 0.7)
-            for ri in range(n_rep)
-            for _ in range(int(rng.integers(2, 5)))
-        ]
-    )
-    core = ACGT[rng.integers(0, 4, core_len)]
-    genomes = []
-    for gi in range(n_genomes):
-        seg_present = rng.random(n_seg) < pres_p
-        pieces = []
-        prev = 0
-        for pos, kind, idx, pp in events:
-            pieces.append(core[prev:pos])
-            prev = pos
-            if kind == "seg":
-                if seg_present[idx]:
-                    pieces.append(seg_seqs[idx])
-            elif rng.random() < pp:
-                pieces.append(rep_seqs[idx])
-        pieces.append(core[prev:])
-        genomes.append((f"acc_{gi}", _mutate(np.concatenate(pieces), rng, sub_rate)))
-    return genomes
+def load(name: str, root: str = ROOT):
+    """The `make` of generator `name`: `port_bench/genomes/<name>.py` under
+    `root`, a `make(n_genomes, genome_len, seed, **arguments)` that returns
+    [(name, uint8 array)]."""
+    path = os.path.join(root, "port_bench", "genomes", name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no genome generator {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location("port_bench_genomes_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make
 
 
-GENERATORS = {"accessory_pangenome": accessory_pangenome}
-
-
-def make(spec: dict, seed: int) -> list:
+def make(spec: dict, seed, root: str = ROOT) -> list:
     """The genomes of a generator spec ({"generator": name, **arguments})
     for `seed`."""
     args = {k: v for k, v in spec.items() if k != "generator"}
-    return GENERATORS[spec["generator"]](seed=seed, **args)
+    return load(spec["generator"], root)(seed=seed, **args)
 
 
-def pool(spec: dict, seed: int, pool_bp: int) -> list:
+def pool(spec: dict, seed: int, pool_bp: int, root: str = ROOT) -> list:
     """A run's inputs: input 0 made from `seed`, input k from (seed, k),
     until they hold `pool_bp` bases; at least one."""
     out, bp = [], 0
     while not out or bp < pool_bp:
-        g = make(spec, seed if not out else [seed, len(out)])
+        g = make(spec, seed if not out else [seed, len(out)], root)
         out.append(g)
         bp += sum(len(s) for _n, s in g)
     return out

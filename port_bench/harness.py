@@ -2,11 +2,13 @@
 
 A cell is an entry of BENCHMARK.json's `workloads`: a configuration
 (configs/<name>.json: the deployment's genomes, as a generator spec, its
-`pangraph build` arguments and the guarantees its result is held to) under
-a traffic mix (traffic/<name>.json: the job kind and its parameters). The
-per-layer metrics of BENCHMARK.json are read by metrics/<name>.py, each a
-`read(record)` that returns a number or None. All three are found by name,
-so a cell or a metric is added by adding files and manifest entries.
+`pangraph build` arguments, the scoring its alignments are judged by and
+the guarantees its result is held to) under a traffic mix
+(traffic/<name>.json: the job kind and its parameters). A generator spec
+names genomes/<name>.py (generators.py). The per-layer metrics of
+BENCHMARK.json are read by metrics/<name>.py, each a `read(record)` that
+returns a number or None. All are found by name, so a configuration, a
+cell or a metric is added by adding files and manifest entries.
 
 A run, in one process:
 
@@ -27,6 +29,7 @@ A run, in one process:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import heapq
@@ -69,6 +72,11 @@ def load_cell(name: str, root: str = ROOT) -> tuple:
     conf = {c["name"]: c for c in manifest["configs"]}[w["config"]]
     config = load_json(os.path.join(root, conf["file"]))
     traffic = load_json(os.path.join(root, "port_bench", "traffic", w["traffic"] + ".json"))
+    from port_bench import generators
+
+    for spec in (config["genomes"], traffic["warmup"]):
+        generators.load(spec["generator"], root)
+    judged_as_built(config)
     return manifest, w, config, traffic
 
 
@@ -171,9 +179,48 @@ def edit_dict(e) -> dict:
 
 
 def build_args(config: dict):
-    from pangraph_tpu_torch.align.params import BuildArgs
+    """The configuration's `BuildArgs`: its groups `aln_args` and
+    `banded_params`, where given, as `AlignmentArgs` and
+    `BandedAlignParams`. A key that its dataclass lacks, or a group value
+    that `BuildArgs` overrides, raises."""
+    from pangraph_tpu_torch.align.params import AlignmentArgs, BandedAlignParams, BuildArgs
 
-    return BuildArgs(**config["build_args"])
+    given = config["build_args"]
+    groups = {"aln_args": AlignmentArgs, "banded_params": BandedAlignParams}
+    kw = {k: _fill(groups[k], v, "build_args." + k) if k in groups else v for k, v in given.items()}
+    args = _fill(BuildArgs, kw, "build_args")
+    for k in groups.keys() & given.keys():
+        group = getattr(args, k)
+        for key, v in given[k].items():
+            if getattr(group, key) != v:
+                raise ValueError(f"build_args.{k}.{key} is {v!r}, but BuildArgs sets {getattr(group, key)!r}")
+    return args
+
+
+def _fill(cls, kw: dict, where: str):
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(kw) - known)
+    if unknown:
+        raise ValueError(f"{where}: {cls.__name__} has no {', '.join(map(repr, unknown))}")
+    return cls(**kw)
+
+
+def judged_as_built(config: dict) -> None:
+    """Raise where the check (`scoring`, the plain reference: a gap costs
+    gap_open at any length, end gaps are free) would score alignments
+    otherwise than the build's `banded_params` do."""
+    from port_bench.reference import align
+
+    bp, sc = build_args(config).banded_params, align.Scoring(**config["scoring"])
+    pairs = {"match": bp.score_match, "mismatch": bp.penalty_mismatch, "gap_open": bp.penalty_gap_open}
+    wrong = [f"scoring.{k} {getattr(sc, k)} against banded_params {v}" for k, v in pairs.items()
+             if getattr(sc, k) != v]
+    if bp.penalty_gap_extend != 0:
+        wrong.append(f"banded_params.penalty_gap_extend {bp.penalty_gap_extend}: the reference charges none")
+    if not (bp.left_terminal_gaps_free and bp.right_terminal_gaps_free):
+        wrong.append("banded_params end gaps not free: the reference's are")
+    if wrong:
+        raise ValueError(f"the check would not score as the build does: {'; '.join(wrong)}")
 
 
 def records(genomes: list) -> list:
@@ -211,11 +258,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     args = build_args(config)
     cuda = device == "cuda"
     aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device=device)
-    pool = generators.pool(config["genomes"], seed, traffic["pool_bp"])
+    pool = generators.pool(config["genomes"], seed, traffic["pool_bp"], root)
     pool_recs = [records(g) for g in pool]
     pool_bp = [sum(len(s) for _n, s in g) for g in pool]
     bp_done = 0
-    warm = records(generators.make(traffic["warmup"], seed))
+    warm = records(generators.make(traffic["warmup"], seed, root))
     attempted = failed = 0
     error = None
     try:
@@ -336,13 +383,14 @@ def check(config: dict, pool: list, graphs: list, kept: list, device: str) -> di
     mismatched = sum(graph.mismatched(text, dict(pool[k])) for k, text in graphs)
     say(f"genomes checked in {time.perf_counter() - t:.1f} s")
     sc = align.Scoring(**config["scoring"])
+    extra = build_args(config).extra_band_width
     invalid, scored, jobs = 0, [], []
     for _key, ref, qry, ms, bw, edit in kept:
         ok, s = align.edit_score(ref, qry, edit, sc) if edit is not None else (False, None)
         if not ok:
             invalid += 1
         elif len(ref) and len(qry):
-            W = min(bw + config["build_args"]["extra_band_width"], g["band_cap"]) - g["band_shrink"]
+            W = min(bw + extra, g["band_cap"]) - g["band_shrink"]
             scored.append(s)
             jobs.append((ref, qry, ms, W))
         else:

@@ -10,7 +10,8 @@ import sys
 
 import pytest
 
-from port_bench import harness
+from pangraph_tpu_torch.align.params import AlignmentArgs, BandedAlignParams, BuildArgs
+from port_bench import generators, harness
 from port_bench.tiny import tiny_root
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -120,6 +121,82 @@ def test_a_cell_and_a_metric_are_added_by_adding_files(tmp_path):
         [p["name"] for p in m["per_layer"] if "extra-cell" in p["workloads"]]
     r = harness.run_cell("extra-cell", 3, 0.2, True, 0.0, root=root, device=None, out=open(os.devnull, "w"))
     assert r["correct"] and r["metrics"]["extra.jobs"]["value"] == r["run"]["jobs"] >= 1
+
+
+def _add_config(root, name, **changes):
+    """Add configuration `name`, ecoli10's with `changes`, and its cell
+    `<name>-build` on the build traffic, by a new file and manifest
+    entries; return the cell's name."""
+    config = harness.load_json(os.path.join(root, "port_bench", "configs", "ecoli10.json"))
+    config.update(name=name, **changes)
+    with open(os.path.join(root, "port_bench", "configs", name + ".json"), "w") as f:
+        json.dump(config, f)
+    m = harness.load_json(os.path.join(root, "BENCHMARK.json"))
+    m["configs"].append({"name": name, "source": "https://example.org/" + name,
+                         "file": f"port_bench/configs/{name}.json", "reduced": [], "why": "a test"})
+    m["workloads"].append({"name": name + "-build", "config": name, "traffic": "build", "chips": 1, "why": "a test"})
+    for p in m["per_layer"]:
+        p["workloads"].append(name + "-build")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(m, f)
+    return name + "-build"
+
+
+def test_a_configuration_is_added_by_files_alone(tmp_path):
+    root = tiny_root(str(tmp_path), 4, 3000)
+    before = _digests(root)
+    with open(os.path.join(root, "port_bench", "genomes", "extra_random.py"), "w") as f:
+        f.write("import numpy as np\n\n\ndef make(n_genomes, genome_len, seed):\n"
+                "    rng = np.random.default_rng(seed)\n"
+                "    return [(f'r{i}', np.frombuffer(b'ACGT', np.uint8)[rng.integers(0, 4, genome_len)])"
+                " for i in range(n_genomes)]\n")
+    got = generators.make({"generator": "extra_random", "n_genomes": 2, "genome_len": 50}, 4, root)
+    assert [n for n, _ in got] == ["r0", "r1"] and all(len(s) == 50 for _n, s in got)
+    cell = _add_config(root, "chrom", genomes={"generator": "mutation_only", "n_genomes": 4, "genome_len": 3000,
+                                               "sub_rate": 0.02},
+                       build_args={"circular": True, "jobs": 2, "extra_band_width": 5, "max_alignment_attempts": 4,
+                                   "aln_args": {"sensitivity": 20, "beta": 5.0, "indel_len_threshold": 100}})
+    after = _digests(root)
+    assert {k: v for k, v in after.items() if k in before and k != "BENCHMARK.json"} == \
+        {k: v for k, v in before.items() if k != "BENCHMARK.json"}
+    _m, _w, c, _t = harness.load_cell(cell, root)
+    args = harness.build_args(c)
+    assert args.aln_args == AlignmentArgs(sensitivity=20, beta=5.0, indel_len_threshold=100)
+    assert args.banded_params == BandedAlignParams(max_alignment_attempts=4)
+    r = harness.run_cell(cell, 2**31 + 5, 0.2, False, 0.0, root=root, device=None, out=open(os.devnull, "w"))
+    assert r["correct"] and r["run"]["jobs"] >= 1
+    assert all(ch["value"] == 0 for ch in r["checks"].values())
+
+
+BAD = {
+    "unknown generator": ({"genomes": {"generator": "no_such_thing", "n_genomes": 2, "genome_len": 3000}},
+                          FileNotFoundError, r"genomes/no_such_thing\.py"),
+    "unknown key": ({"build_args": {"circular": True, "jbos": 4}}, ValueError, r"build_args: BuildArgs has no 'jbos'"),
+    "unknown group key": ({"build_args": {"aln_args": {"sensitivty": 20}}}, ValueError,
+                          r"build_args.aln_args: AlignmentArgs has no 'sensitivty'"),
+    "overridden group key": ({"build_args": {"max_alignment_attempts": 4,
+                                             "banded_params": {"max_alignment_attempts": 2}}},
+                             ValueError, r"banded_params.max_alignment_attempts is 2, but BuildArgs sets 4"),
+    "scoring": ({"build_args": {"banded_params": {"penalty_gap_open": 8}}}, ValueError,
+                r"scoring.gap_open 6 against banded_params 8"),
+    "gap extension": ({"build_args": {"banded_params": {"penalty_gap_extend": 1}}}, ValueError,
+                      r"penalty_gap_extend 1"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD))
+def test_a_bad_configuration_raises_at_load(tmp_path, case):
+    changes, error, message = BAD[case]
+    root = tiny_root(str(tmp_path), 4, 3000)
+    cell = _add_config(root, "bad", **changes)
+    with pytest.raises(error, match=message):
+        harness.load_cell(cell, root)
+
+
+def test_ecoli10_build_args():
+    _m, _w, config, _t = harness.load_cell("ecoli10-build")
+    assert harness.build_args(config) == BuildArgs(circular=True, jobs=4, max_self_map=100, extra_band_width=5,
+                                                   max_alignment_attempts=4)
 
 
 def _run_py(cwd):

@@ -20,7 +20,8 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 @pytest.fixture(scope="module", params=[None, "cpu"], ids=["host", "plain-kernels"])
 def built(request):
-    genomes = generators.accessory_pangenome(4, 2_500 if request.param else 6_000, 3)
+    genomes = generators.make({"generator": "accessory_pangenome", "n_genomes": 4,
+                               "genome_len": 2_500 if request.param else 6_000}, 3)
     args = BuildArgs(circular=True, jobs=2)
     al = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, device=request.param)
     return genomes, build(harness.records(genomes), args, aligner=al).to_json()

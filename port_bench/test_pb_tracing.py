@@ -1,6 +1,6 @@
-"""The per-layer readers of the aligner's waits, the merge layer's own work,
-the guide tree and the fetch (metrics/*.py) on hand-made records with
-known answers, and None where their input is missing."""
+"""The per-layer readers of the aligner's waits, the merge layer's own work
+and the guide tree (metrics/*.py) on hand-made records with known answers,
+and None where their input is missing."""
 import importlib.util
 import os
 
@@ -17,13 +17,13 @@ def reader(name: str):
     return mod.read
 
 
-def record(intervals=(), launches=(), engine=None, jobs=2, window_s=10.0) -> dict:
+def record(intervals=(), launches=(), jobs=2, window_s=10.0) -> dict:
     spans = {}
     for name, _tid, a, b in intervals:
         spans[name] = spans.get(name, 0.0) + (b - a)
     return {"jobs": jobs, "window_s": window_s, "spans": spans, "span_intervals": list(intervals),
             "launches": [{"name": "stripe_dp", "start_s": a, "end_s": b} for a, b in launches],
-            "engine": engine or {}}
+            "engine": {}}
 
 
 # merge thread 1 and 2, broker thread 9
@@ -57,9 +57,6 @@ CASES = {
     # a wait past the window's end counts up to the end
     ("device.idle_waited_share", "clipped"): (
         record([("align.wait", 1, 8.0, 12.0)], launches=[(0.0, 1.0)]), 2.0 / 10),
-    ("align.fetch_used_frac", "counter"): (record(engine={"fetch": {"bytes": 400, "used_bytes": 100}}), 0.25),
-    ("align.fetch_used_frac", "no counter"): (record(engine={"device_cells_frac": 1.0}), None),
-    ("align.fetch_used_frac", "nothing fetched"): (record(engine={"fetch": {"bytes": 0, "used_bytes": 0}}), None),
 }
 
 
