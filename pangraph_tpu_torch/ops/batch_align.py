@@ -268,6 +268,21 @@ class BatchAligner:
 
     # DP cells per engine
     ENGINE = {"host": 0, "device": 0}
+    # the host engine's DP cells by why they left the card, adding up to
+    # ENGINE["host"]: "fill", a round's smallest jobs within the host leg's
+    # budget or the adaptive split's share; "past_clamp", bands past the
+    # kernels' widest, which only the host engine widens; "plan.<why>", jobs
+    # _plan sends to the host before any launch (PLAN_HOST); "probe_wait",
+    # rounds run whole on the host while a probe leg is in flight;
+    # "no_device", every job of an aligner without a device; "exhausted",
+    # jobs whose retries ran out without a usable Edit
+    PLAN_HOST = ("tier", "corner", "route", "ckpt_events")
+    HOST_REASONS = dict.fromkeys(("fill", "past_clamp", *("plan." + k for k in PLAN_HOST), "probe_wait",
+                                  "no_device", "exhausted"), 0)
+    # jobs align_many sent to another round, by cause: a boundary hit whose
+    # band it widened, an event overflow whose event capacity it raised (a
+    # job can have both)
+    RETRIES = {"widened": 0, "k_bumped": 0}
     # bytes the device legs copy off the card (every fetched array) and the
     # part of them the host's decode reads (all of it: _fetch)
     FETCH = {"bytes": 0, "used_bytes": 0}
@@ -408,6 +423,7 @@ class BatchAligner:
                 [jobs[i] for i in pending], [widths[i] for i in pending], [kbumps[i] for i in pending]
             )
             next_pending = []
+            widened = k_bumped = 0
             for slot, idx in enumerate(pending):
                 # the kernel clamps bands at max_w_kernel; the host engine has
                 # no such cap, so widening past it is useful while the job (at
@@ -422,14 +438,19 @@ class BatchAligner:
                 if retry:
                     if can_widen:
                         widths[idx] = max(2 * widths[idx], max(1, abs(jobs[idx].band.mean_shift)))
+                        widened += 1
                     if overflow[slot]:
                         kbumps[idx] *= 4  # divergent pair: raise event capacity
+                        k_bumped += 1
                     next_pending.append(idx)
                 elif edits[slot] is None:
                     # retries exhausted with an unusable device result
-                    results[idx] = self._host_fallback(jobs[idx])
+                    results[idx] = self._host_fallback(jobs[idx], "exhausted")
                 else:
                     results[idx] = edits[slot]
+            with self._ENGINE_LOCK:
+                self.RETRIES["widened"] += widened
+                self.RETRIES["k_bumped"] += k_bumped
             pending = next_pending
             attempt += 1
         return results
@@ -440,6 +461,14 @@ class BatchAligner:
     def _engine_count(cls, engine: str, cells: int) -> None:
         with cls._ENGINE_LOCK:
             cls.ENGINE[engine] += cells
+
+    @classmethod
+    def _host_count(cls, by_reason: dict) -> None:
+        """Count host-engine DP cells, {reason: cells} (HOST_REASONS)."""
+        with cls._ENGINE_LOCK:
+            for reason, cells in by_reason.items():
+                cls.ENGINE["host"] += cells
+                cls.HOST_REASONS[reason] += cells
 
     @classmethod
     def _fetch_count(cls, key: str, nbytes: int) -> None:
@@ -455,17 +484,25 @@ class BatchAligner:
     @classmethod
     def engine_report(cls) -> dict:
         """Per-engine DP-cell totals and the device's share of the cells;
-        the bytes fetched off the card and the part the decode read; the
+        the host engine's cells by reason (`host_reasons`, adding up to
+        `host`, with "plan" split in `host_plan`) and the jobs retried by
+        cause; the bytes fetched off the card and the part the decode read; the
         device launches' problems by where their events were decoded; device
         cells per route, tier and shard; and the broker's combined rounds,
         the legs they held and the most legs in one."""
         with cls._ENGINE_LOCK:
             engines = dict(cls.ENGINE)
+            reasons = dict(cls.HOST_REASONS)
+            retries = dict(cls.RETRIES)
             fetch = dict(cls.FETCH)
             decode = dict(cls.DECODE)
         out = {k: {"cells": int(c)} for k, c in engines.items()}
         tot = sum(engines.values())
         out["device_cells_frac"] = round(engines["device"] / tot, 4) if tot else None
+        plan = {k: reasons.pop("plan." + k) for k in cls.PLAN_HOST}
+        out["host_reasons"] = {**reasons, "plan": sum(plan.values())}
+        out["host_plan"] = plan
+        out["retries"] = retries
         out["fetch"] = fetch
         out["decode"] = decode
         routes, tiers = {}, {}
@@ -509,8 +546,9 @@ class BatchAligner:
     @classmethod
     def reset_engine_stats(cls) -> None:
         with cls._ENGINE_LOCK:
-            for k in cls.ENGINE:
-                cls.ENGINE[k] = 0
+            for counts in (cls.ENGINE, cls.HOST_REASONS, cls.RETRIES):
+                for k in counts:
+                    counts[k] = 0
             for k in cls.FETCH:
                 cls.FETCH[k] = 0
             for k in cls.DECODE:
@@ -713,13 +751,15 @@ class BatchAligner:
         if self.device is None:
             if self._native_lib() is not None:
                 out = self._run_round_native(jobs, widths)
+                self._host_count({"no_device": sum(cells)})
             else:
-                out = [self._host_fallback(j) for j in jobs], [False] * n, [False] * n
+                out = [self._host_fallback(j, "no_device") for j in jobs], [False] * n, [False] * n
             self._record("host", jobs, sum(cells), time.time() - t0)
             return out
         max_w_kernel = (self.MAX_B - 2) // 2
         nat_set = set()
         gate = None
+        past_clamp = 0
         if self._native_lib() is not None:
             cap = self.NATIVE_CELL_BUDGET
             if self.gated():
@@ -734,8 +774,9 @@ class BatchAligner:
             # the device would clamp these bands; the host is the only engine
             # that widens them, up to the same area guard align_many uses
             wide = {i for i in range(n) if widths[i] > max_w_kernel and cells[i] <= self.NATIVE_WIDEN_AREA}
+            past_clamp = sum(cells[i] for i in wide - nat_set)
             if gate is not None:
-                gate.update(fill=acc, next=nxt, wide=sum(cells[i] for i in wide - nat_set))
+                gate.update(fill=acc, next=nxt, wide=past_clamp)
             nat_set |= wide
         nat_idx = sorted(nat_set)
         dev_idx = [i for i in range(n) if i not in nat_set]
@@ -745,6 +786,7 @@ class BatchAligner:
             gate.update(race_lost=probe, host=sum(cells), dev=0, kind="probe-wait")
             tn = time.time()
             e, b, _ = self._run_round_native(jobs, widths)
+            self._host_count({"probe_wait": sum(cells)})
             self._observe_rate("host", sum(cells), time.time() - tn)
             self._record(f"host[probe-wait,n={n}]", jobs, sum(cells), time.time() - t0)
             return e, b, [False] * n
@@ -758,6 +800,7 @@ class BatchAligner:
         def host_leg():
             tn = time.time()
             e, b, _ = self._run_round_native([jobs[i] for i in nat_idx], [widths[i] for i in nat_idx])
+            self._host_count({"fill": nat_cells - past_clamp, "past_clamp": past_clamp})
             if gate is not None:
                 self._observe_rate("host", nat_cells, time.time() - tn)
             for s, i in enumerate(nat_idx):
@@ -813,10 +856,10 @@ class BatchAligner:
     def _run_round_native(self, jobs: list, widths: list):
         """Host C++ round: banded stripe DP + traceback per job, threaded
         across host cores (native/stripe.cpp). Same stripe geometry and tie
-        rules as the host aligner; edits match map_variations exactly."""
+        rules as the host aligner; edits match map_variations exactly. The
+        caller counts the round's cells (_host_count), under its reasons."""
         from pangraph_tpu_torch.native import stripe_align_batch_native
 
-        eng_cells = sum(self._job_cells(j, int(w)) for j, w in zip(jobs, widths))
         n = len(jobs)
         refs = [j.ref for j in jobs]
         qrys = [j.qry for j in jobs]
@@ -861,18 +904,18 @@ class BatchAligner:
                 elif single is not None and int(single["status"][0]) == 1:
                     boundary[s] = True
                 else:
-                    edits[s] = self._host_fallback(jobs[s], count=False)
+                    edits[s] = self._host_fallback(jobs[s], None)
             else:  # paths over budget: numpy fallback
-                edits[s] = self._host_fallback(jobs[s], count=False)
-        self._engine_count("host", eng_cells)
+                edits[s] = self._host_fallback(jobs[s], None)
         return edits, boundary, [False] * n
 
     def _plan(self, jobs: list, widths: list, kbumps: list):
         """Bucket the round's jobs by (tier, band) into launches. Returns
         (planned, fallback_idx); planned holds (job indices, R_cap, B, K,
-        ckpt), ckpt True for the checkpoint route."""
+        ckpt), ckpt True for the checkpoint route; fallback_idx maps the jobs
+        left to the host engine to why (PLAN_HOST), in the order found."""
         groups = {}
-        fallback_idx = []
+        fallback_idx = {}
         max_w = (self.MAX_B - 2) // 2
         for i, W in enumerate(widths):
             j = jobs[i]
@@ -887,7 +930,7 @@ class BatchAligner:
             if tier is None or corner > max_w:
                 # beyond the largest tier, or length mismatch so large the end
                 # corner can't sit inside the widest band
-                fallback_idx.append(i)
+                fallback_idx[i] = "tier" if tier is None else "corner"
                 continue
             groups.setdefault((tier, B), []).append(i)
 
@@ -898,7 +941,7 @@ class BatchAligner:
                 # records that do not fit, and the checkpoint pair is slower
                 # than the host engine: the reference's host path, the
                 # single-job fallback on its two threads
-                fallback_idx.extend(idxs)
+                fallback_idx.update(dict.fromkeys(idxs, "route"))
                 continue
             ckpt = route == "ckpt"
             M = self._launch_cap(R_cap, B, ckpt)
@@ -922,7 +965,7 @@ class BatchAligner:
                 while K < K_need and K < K_cap:
                     K *= 4
                 if ckpt and K_need > K_cap:
-                    fallback_idx.extend(sub)
+                    fallback_idx.update(dict.fromkeys(sub, "ckpt_events"))
                     continue
                 planned.append((sub, R_cap, B, K, ckpt))
         return planned, fallback_idx
@@ -969,7 +1012,7 @@ class BatchAligner:
         if fallback_idx:
             fb_pool = cf.ThreadPoolExecutor(max_workers=2)
             fallback = trace.carry(self._host_fallback)
-            fb_futs = {i: fb_pool.submit(fallback, jobs[i]) for i in fallback_idx}
+            fb_futs = {i: fb_pool.submit(fallback, jobs[i], "plan." + why) for i, why in fallback_idx.items()}
 
         def collect():
             try:
@@ -1274,9 +1317,9 @@ class BatchAligner:
                         # doubled band (align/align.rs:55-63)
                         pass
                     else:  # dead walk without boundary: rare; host fallback
-                        # count=False: this job's cells are already counted
-                        # as device cells
-                        edits[i] = self._host_fallback(jobs[i], False)
+                        # no reason: this job's cells are already counted as
+                        # device cells
+                        edits[i] = self._host_fallback(jobs[i], None)
                         on_host += 1
         self._decode_count(on_card, on_host)
 
@@ -1304,7 +1347,11 @@ class BatchAligner:
                 self._mem_outstanding[d] -= n
             self._mem_lock.notify_all()
 
-    def _host_fallback(self, job: AlignJob, count: bool = True) -> Edit:
+    def _host_fallback(self, job: AlignJob, reason: str = None) -> Edit:
+        """One job on the host engine, widening as the host aligner does
+        (_native_single), or the numpy aligner where that fails. Its cells
+        are counted under `reason` (HOST_REASONS); None where the caller
+        has counted them."""
         try:
             with trace.span("align.host_fallback"):
                 edit = self._native_single(job)
@@ -1314,10 +1361,8 @@ class BatchAligner:
 
                 return map_variations(job.ref, job.qry, job.band, self.params, self.extra)
         finally:
-            # count=False when the caller already accounted these cells
-            if count:
-                cells = self._job_cells(job, job.band.band_width + self.extra)
-                self._engine_count("host", cells)
+            if reason is not None:
+                self._host_count({reason: self._job_cells(job, job.band.band_width + self.extra)})
 
     def _native_single(self, job: AlignJob) -> Edit:
         """Single-job native alignment with the host aligner's own retry loop

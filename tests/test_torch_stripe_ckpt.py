@@ -296,7 +296,7 @@ def test_override_routes_groups_past_the_reference_quantity():
     al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu", ckpt_paths_bytes=3_000_000)
     routes, _planned, fallback = plan_routes(al, jobs)
     assert routes == {(4096, 128): False, (4096, 256): True, (10240, 128): True}
-    assert fallback == []
+    assert fallback == {}
     al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu")
     assert not any(plan_routes(al, jobs)[0].values())
 
@@ -326,12 +326,12 @@ def test_event_dense_ckpt_jobs_go_to_the_host():
     jobs[3].hint_events = 1100  # in the (4096, 256) group
     al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu", ckpt_paths_bytes=3_000_000)
     routes, planned, fallback = plan_routes(al, jobs)
-    assert sorted(fallback) == [2, 3]  # the whole sub-batch of the group
+    assert fallback == {2: "ckpt_events", 3: "ckpt_events"}  # the whole sub-batch of the group
     assert (4096, 256) not in routes and routes[(10240, 128)]
     # the same hint on the v2 route just raises K
     al = BatchAligner(BandedAlignParams(), 5, 4, device="cpu")
     _routes, planned, fallback = plan_routes(al, jobs)
-    assert fallback == [] and max(K_ for _s, _R, _B, K_, _c in planned) == 4096
+    assert fallback == {} and max(K_ for _s, _R, _B, K_, _c in planned) == 4096
 
 
 def test_align_many_on_the_ckpt_route():
