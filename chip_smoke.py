@@ -52,9 +52,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    with an exact roundtrip, the DP, walk and decode launched, the checkpoint pair
    not launched, and at least half of the DP cells on the device; graph
    quality is printed beside the reference's figures for the same input
-   (1156 blocks, core fraction 0.4875, 7,028,975 bp: the bench's
-   HEADLINE_QUALITY) and must stay within the bench's QUALITY_TOLERANCE
-   of them; the kernels' launch log
+   (1156 blocks, core fraction 0.4875, 7,028,975 bp: HEADLINE_QUALITY)
+   and must stay within QUALITY_TOLERANCE of them; the kernels' launch log
    (stripe_v2.KERNEL_TIMING) gives each DP and walk kernel's launches and
    summed device ms, per band width B, and a histogram of problems per
    launch for each B; the build runs under torch.profiler (CUDA activity
@@ -124,26 +123,18 @@ Phases, one line each (any failure exits non-zero and prints no result):
    bp): both graphs equal to a solo build's on the card, the group's sum
    equal to the cluster's 4 shards, 1-5 merges claimed, the DP and walk
    launched in the workers;
-10. the bench: `python -m pangraph_tpu_torch.bench --workload
-   synthetic_12x120kb_mutation_only --workload device_kernel_probe
-   --repeats 1` in a process of its own (BENCH_ARGV), which resets the
-   launch counts before its measured build and reports them after: it must
-   exit 0 with one JSON line whose synthetic build has an exact roundtrip,
-   at least half of its DP cells on the device, the DP and walk launched
-   with their launch-log device ms, whose kernel probe reports positive
-   rates, and whose device is this card;
 11. the gated path: the headline built in this process (build() with
    BuildArgs(circular=True, jobs=2), a BatchAligner on card 0) at
    NATIVE_CELL_BUDGET = 100,000,000 cells, the reference's default, so that
    the adaptive host/device split routes every round; the launch counts
-   set to 0 just before it: an exact roundtrip, quality within the
-   bench's QUALITY_TOLERANCE, the DP and walk launched with launch-log device ms,
+   set to 0 just before it: an exact roundtrip, quality within
+   QUALITY_TOLERANCE, the DP and walk launched with launch-log device ms,
    the checkpoint pair, sketch and chain not, some cells on the device (no
    bound on the share: the gate decides it), and every logged round's
    split equal to the reference's rule recomputed from the state logged
    before it (check_gate_log); the engines' rates, the overhead and the
    measured round trip, the rounds by kind, the wall and the device share
-   on `phase11.*` lines. It runs after phase 10;
+   on `phase11.*` lines;
 12. the checkpoint route: the headline built as in phase 11, with the
    aligner's record budget cut to CKPT_ROUTE_RECORD_BUDGET bytes, so that
    the groups of the 10,240 tier and up do not fit and the reference's
@@ -172,7 +163,7 @@ and the kernel's receipt says "timed_by": "profiler, events in some phase".
 
 Before the last line it prints one JSON line of kernel receipts (each of
 the six with its launches on its path, the DP's and walk's also on phase
-7's merge, phase 10's bench build and phase 11's gated build, the four
+7's merge and phase 11's gated build, the four
 alignment kernels' on phase 8's mesh and on phase 12's build, with that
 build's launch-log ms, its worst error
 against its plain version, its
@@ -235,36 +226,12 @@ CKPT_PLAIN_SHAPES = {(128, 65536), (2048, 10240), (1920, 10240)}
 MBP_SHAPE = (128, 2_097_152, 32)
 MBP_K = 2048  # the checkpoint route's event capacity (BatchAligner.CKPT_K_CAP)
 CKPT_OVERRIDE_BYTES = "32000000"
-# The card's peaks for bound_ms: H100 SXM HBM at 3.35 TB/s (NVIDIA's data
-# sheet), and the int32 throughput, 132 SMs x 64 INT32 lanes at the 1.98 GHz
-# boost clock.
-HBM_BYTES_PER_S = 3.35e12
+# The card's peaks for bound_ms and the DP's integer operations a cell are
+# the benchmark's yardstick's (port_bench/yardstick.py: H100_HBM_BYTES_PER_S,
+# H100_INT32_OPS_PER_S, DP_OPS_PER_CELL, the recurrence's count at each
+# route). The clock and the SMs below turn times into cycles.
 SM_CLOCK_HZ = 1.98e9
 N_SMS = 132
-INT32_OPS_PER_S = N_SMS * 64 * SM_CLOCK_HZ
-# Integer operations per DP cell that the recurrence itself needs, counted
-# from ops/stripe_v2.py:_RowStep at one per add, max, compare, pick, and, or
-# or shift (each issues on the INT32 pipe). Address arithmetic, loads, the
-# lane scan's shuffles and the barriers belong to the kernel's design and
-# are not counted.
-DP_CARRY_OPS = {  # what the carries (H, query gap, MATCH run) need
-    "in band: q = q0 + i, 0 <= q <= qlen": 4,
-    "score: either code N (2 compares, or), codes compatible (and, compare), 2 picks": 7,
-    "diagonal: q >= 1 (compare, and), H + score": 3,
-    "query gap: open (subtract; free at q = qlen: compare, pick), extend (compare, pick)": 5,
-    "NQ = max(M, QG); P = NQ - gap open, out of band NO_ALIGN": 3,
-    "horizontal gap: one prefix-max step": 1,
-    "H and origin: 2 compares, 4 picks": 6,
-    "MATCH run: test, add, pick": 3,
-}
-DP_RECORD_OPS = {  # what a record adds
-    "query-gap extend flag: and, or": 2,
-    "ref-gap extend flag: max, subtract, compare, or": 4,
-    "boundary flag: compare, or": 2,
-    "record: cap the run, shift, or": 3,
-}
-CKPT_DP_OPS_PER_CELL = sum(DP_CARRY_OPS.values())  # the checkpoint DP: carries only
-DP_OPS_PER_CELL = CKPT_DP_OPS_PER_CELL + sum(DP_RECORD_OPS.values())  # the DP, the walk's re-derive
 # The DP's dependency: row i needs all of row i-1, so a problem's rows run
 # one after another and a launch takes at least its longest problem's rows
 # times the cycles of one row's critical path, at SM_CLOCK_HZ. The path is
@@ -620,16 +587,22 @@ def _host_ms(torch, fn):
 def _bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over its
     memory rate and the integer operations over its int32 throughput."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    from port_bench import yardstick
+
+    t_bytes = nbytes / yardstick.H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / yardstick.H100_INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
-def _dp_bound(nbytes: float, ops: float, rlen, B: int) -> dict:
-    """A DP's bound: `_bound` of its bytes and operations, beside its
-    dependency bound, the longest problem's rows times dp_row_cycles(B);
-    `binds` names the larger."""
-    out = _bound(nbytes, ops)
+def _dp_bound(nbytes: float, cells: int, rlen, B: int, route: str) -> dict:
+    """A DP's bound: `_bound` of its bytes and of its cells at the
+    yardstick's operations a cell on `route` ("v2": with a record, "ckpt":
+    carries only), beside its dependency bound, the longest problem's rows
+    times dp_row_cycles(B); `binds` names the larger."""
+    from port_bench import yardstick
+
+    out = _bound(nbytes, cells * yardstick.DP_OPS_PER_CELL[route])
     out["dep_bound_ms"] = int(np.max(rlen, initial=0)) * dp_row_cycles(B) / SM_CLOCK_HZ * 1e3
     out["binds"] = "dependency" if out["dep_bound_ms"] > out["bound_ms"] else out["bound_by"]
     return out
@@ -728,7 +701,7 @@ def phase_kernels(torch) -> dict:
         diff = (rec.int() - rec_plain.int()).abs()[rows_live]
         dp_err = int(diff.max()) if diff.numel() else 0
         in_bytes, cells = _dp_work(arrays[2], arrays[3], B)
-        dp_bound = _dp_bound(in_bytes + 2 * cells, DP_OPS_PER_CELL * cells, arrays[2], B)
+        dp_bound = _dp_bound(in_bytes + 2 * cells, cells, arrays[2], B, "v2")
 
         out = sv.walk(rec, rlen, qlen, ms, W, seg, WALK_K)
         n = min(PLAIN_WALK_PROBLEMS, m)
@@ -801,18 +774,20 @@ def _ckpt_bounds(arrays, B: int, n_windows: int, out, K: int, problems: list) ->
     """Bounds of the checkpoint DP (over all problems) and walk (over the
     problems listed): the DP's cells and its live carries written once; the
     walk's re-derived windows (their carries and sequence bytes read once,
-    their cells recomputed) on top of its events."""
+    their cells recomputed with their records, at the v2 route's operations
+    a cell) on top of its events."""
     from pangraph_tpu_torch.ops.stripe_v2 import ckpt_layout
+    from port_bench import yardstick
 
     WV = ckpt_layout(B)
     rlen, qlen = arrays[2], arrays[3]
     in_bytes, cells = _dp_work(rlen, qlen, B)
     live = int((np.minimum(rlen // WV, n_windows - 1) + 1).sum())
-    dp = _dp_bound(in_bytes + live * 3 * B * 4, CKPT_DP_OPS_PER_CELL * cells, rlen, B)
+    dp = _dp_bound(in_bytes + live * 3 * B * 4, cells, rlen, B, "ckpt")
     sub = [t[problems] for t in out]
     win = _rederived_windows(sub, rlen[problems], WV, K)
     walk = _walk_bound(sub, rlen[problems], K, extra_bytes=win * (3 * B * 4 + 2 * WV + B),
-                       extra_ops=win * WV * B * DP_OPS_PER_CELL, dep_cycles=WV * dp_row_cycles(B))
+                       extra_ops=win * WV * B * yardstick.DP_OPS_PER_CELL["v2"], dep_cycles=WV * dp_row_cycles(B))
     return dp, walk, win
 
 
@@ -1095,7 +1070,7 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             else:
                 os.environ[k] = v
     say(phase, env=json.dumps(env), wall_s=round(wall, 3), roundtrip="exact", launches=json.dumps(launches))
-    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in reference_quality().items()})
+    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in HEADLINE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log, device)
     say_broker(phase, report, launches, kernel_log)
@@ -1118,22 +1093,30 @@ def phase_build_path(torch, phase: str, fa: str, env: dict, want: dict, profile:
             "device": device}
 
 
-def reference_quality() -> dict:
-    """The reference's figures for the headline (the bench's
-    HEADLINE_QUALITY)."""
-    from pangraph_tpu_torch.bench import HEADLINE_QUALITY
+# the reference's graph of the headline (BENCH_r05), and how far a graph of
+# the kernel route may lie from it (relative for blocks and bp, absolute for
+# the core fraction): the kernels band B lanes where the host engine bands
+# 2W+2, so edits differ at band edges
+HEADLINE_QUALITY = {"n_blocks": 1156, "core_fraction": 0.4875, "pangenome_bp": 7028975}
+QUALITY_TOLERANCE = {"n_blocks": 0.01, "core_fraction": 0.01, "pangenome_bp": 0.001}
 
-    return HEADLINE_QUALITY
+
+def quality_off(quality: dict, want: dict) -> dict:
+    """The quality figures of `quality` that lie beyond QUALITY_TOLERANCE of
+    `want`'s: {name: (got, want)}."""
+    off = {}
+    for k, tol in QUALITY_TOLERANCE.items():
+        if abs(quality[k] - want[k]) / (1 if k == "core_fraction" else want[k]) > tol:
+            off[k] = (quality[k], want[k])
+    return off
 
 
 def check_quality(phase: str, quality: dict) -> None:
-    """The graph's quality within the bench's QUALITY_TOLERANCE of the
-    reference's (bench.quality_off)."""
-    from pangraph_tpu_torch import bench
-
-    off = bench.quality_off(quality, bench.HEADLINE_QUALITY)
+    """The graph's quality within QUALITY_TOLERANCE of the reference's
+    (HEADLINE_QUALITY)."""
+    off = quality_off(quality, HEADLINE_QUALITY)
     if off:
-        raise AssertionError(f"{phase}: graph quality (got, reference) {off} lies beyond {bench.QUALITY_TOLERANCE}")
+        raise AssertionError(f"{phase}: graph quality (got, reference) {off} lies beyond {QUALITY_TOLERANCE}")
 
 
 def say_broker(phase: str, report: dict, launches: dict, kernel_log: dict) -> dict:
@@ -1661,7 +1644,7 @@ def phase_cli_path(torch, fa: str, graph: str, work: str, main_quality: dict) ->
     if sorted(p.name for p in mg.paths.values()) != sorted(names):
         raise AssertionError(f"{phase}: the merged graph holds {len(mg.paths)} of {len(names)} genomes")
     quality = graph_quality(mg)
-    say(f"{phase}.merge_quality", **{k: f"{quality[k]}(build {main_quality[k]})" for k in reference_quality()},
+    say(f"{phase}.merge_quality", **{k: f"{quality[k]}(build {main_quality[k]})" for k in HEADLINE_QUALITY},
         n_core_blocks=quality["n_core_blocks"], note="no_bound_a_merge_of_two_halves_is_not_a_build")
 
     t0 = time.time()
@@ -1977,56 +1960,6 @@ def phase_cluster(torch, work: str) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
-# phase 10: the bench's short run on the card, and its time limit
-BENCH_WORKLOAD = "chromosome_scale_4x2.5Mbp_mutation_only"
-BENCH_ARGV = ["--workload", BENCH_WORKLOAD, "--workload", "device_kernel_probe", "--repeats", "1"]
-BENCH_TIMEOUT_S = 300
-
-
-def phase_bench(torch) -> dict:
-    """Phase 10: the bench through its entry point (BENCH_ARGV), in a
-    process of its own that builds the synthetic workload on the card once
-    after a warm-up and runs the kernel probe. Its one JSON line must show
-    an exact roundtrip, at least half of the DP cells on the device, the DP
-    and walk launched and timed on the launch log, positive probe rates,
-    and this card as the device. Returns the build's launches."""
-    phase = "bench"
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    out = subprocess.run([sys.executable, "-m", "pangraph_tpu_torch.bench", *BENCH_ARGV],
-                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.time() - t0
-    if out.returncode != 0:
-        sys.stderr.write(out.stderr[-4000:])
-        raise AssertionError(f"{phase}: the bench exited {out.returncode}")
-    lines = out.stdout.strip().splitlines()
-    if len(lines) != 1:
-        raise AssertionError(f"{phase}: the bench printed {len(lines)} lines, not one JSON line")
-    line = json.loads(lines[0])
-    rep, probe = line["detail"][BENCH_WORKLOAD], line["detail"]["device_kernel_probe"]
-    align = rep["align"]
-    say(phase, seconds=round(wall, 3), workload=BENCH_WORKLOAD, wall_s=rep["wall_s"], bp_per_s=rep["bp_per_s"],
-        roundtrip=rep["roundtrip"], device_cells_frac=align["engines"]["device_cells_frac"],
-        launches=json.dumps(align["launches"]), kernel_ms=json.dumps(align["kernel_ms"]),
-        peak_device_bytes=rep["peak_device_bytes"], sha256=rep["graph_sha256"][:16],
-        probe_gcells_per_s=probe["on_device_gcells_per_s"],
-        probe_1call_gcells_per_s=probe["effective_1call_gcells_per_s"], probe_dp_bound_share=probe["dp_bound_share"], device=json.dumps(line["device"]))
-    if rep["roundtrip"] != "exact":
-        raise AssertionError(f"{phase}: roundtrip {rep['roundtrip']!r}")
-    if (align["engines"]["device_cells_frac"] or 0) < 0.5:
-        raise AssertionError(f"{phase}: device_cells_frac {align['engines']['device_cells_frac']} < 0.5")
-    for name in ("stripe_dp", "walk", "decode_events"):
-        if align["launches"][name] <= 0 or name not in align["kernel_ms"]:
-            raise AssertionError(f"{phase}: {name} was not launched and timed: {align['launches']}, "
-                                 f"{align['kernel_ms']}")
-    if not (probe["on_device_gcells_per_s"] > 0 and probe["effective_1call_gcells_per_s"] > 0):
-        raise AssertionError(f"{phase}: the kernel probe's rates are not positive: {probe}")
-    if line["device"]["platform"] != "gpu" or line["device"]["name"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"{phase}: the bench ran on {line['device']}, not this card")
-    return {"launches": align["launches"], "wall_s": wall}
-
-
 # The adaptive split's settings that its rule reads (BatchAligner's)
 GATE_SETTINGS = ("RATE_MIN_CELLS", "DEV_PROBE_CELLS", "DEVICE_MIN_ADVANTAGE", "MIXED_GUARANTEE", "HOST_ALL")
 
@@ -2164,10 +2097,10 @@ def _gated_build(torch, phase: str, fa: str, record_budget: int = None) -> dict:
     GATED_BUDGET: build() with BuildArgs(circular=True, jobs=2) and a new
     BatchAligner on card 0 (its record budget set to `record_budget` where
     given), the launch counts set to 0 just before it and read just after.
-    Checks an exact roundtrip, quality within the bench's
-    QUALITY_TOLERANCE, some cells on the device, and every logged round
-    consistent with the gate's rule (check_gate_log); prints the build's
-    line, its quality, its launch log and its gate line."""
+    Checks an exact roundtrip, quality within QUALITY_TOLERANCE, some
+    cells on the device, and every logged round consistent with the gate's
+    rule (check_gate_log); prints the build's line, its quality, its launch
+    log and its gate line."""
     from pangraph_tpu_torch.align.params import BuildArgs
     from pangraph_tpu_torch.build.build import build, verify_roundtrip
     from pangraph_tpu_torch.commands import graph_quality
@@ -2205,7 +2138,7 @@ def _gated_build(torch, phase: str, fa: str, record_budget: int = None) -> dict:
     say(phase, native_cell_budget=GATED_BUDGET, record_budget=aligner.budget, wall_s=round(wall, 3),
         roundtrip="exact", device_cells_frac=report["device_cells_frac"], host_cells=report["host"]["cells"],
         device_cells=report["device"]["cells"], gated_rounds=len(log), launches=json.dumps(launches))
-    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in reference_quality().items()})
+    say(f"{phase}.quality", **{k: f"{quality[k]}(reference {v})" for k, v in HEADLINE_QUALITY.items()})
     say(f"{phase}.engines", report=json.dumps(report))
     say_launch_log(phase, kernel_log)
     kinds = check_gate_log(phase, log, gate_settings(BatchAligner))
@@ -2300,11 +2233,10 @@ def _timed_by(name: str) -> str:
 
 
 def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict, sc_path: dict,
-             cli_path: dict, mesh_path: dict, bench: dict, gated: dict, route: dict) -> dict:
+             cli_path: dict, mesh_path: dict, gated: dict, route: dict) -> dict:
     """One entry per kernel: launches on its own path (the DP and walk on
     the headline's default path, on phase 7's merge as `merge_launches`,
-    on phase 10's bench build as `bench_launches` and on phase 11's gated
-    build as `gated_launches`; the checkpoint pair
+    and on phase 11's gated build as `gated_launches`; the checkpoint pair
     on the long-tier path, the sketch
     and chain on phase 6; the four alignment kernels on phase 8's mesh as
     `mesh_launches` and on phase 12's build as `ckpt_route_launches`, with
@@ -2343,7 +2275,6 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         rows[-1]["ckpt_route_device_ms"] = round(route["kernels"].get(name, {"ms": 0.0})["ms"], 3)
         if path is main_path:
             rows[-1]["merge_launches"] = cli_path["launches"][name]
-            rows[-1]["bench_launches"] = bench["launches"][name]
             rows[-1]["gated_launches"] = gated["launches"][name]
             rows[-1]["mesh_launches"] = mesh_path["launches"][name]
         else:
@@ -2361,7 +2292,7 @@ def receipts(kern: dict, ckpt: dict, main_path: dict, long_tier: dict, sc: dict,
         "timed_by": "events", "long_tier_launches": long_tier["launches"]["decode_events"],
         "ckpt_route_launches": route["launches"]["decode_events"],
         "ckpt_route_device_ms": round(route["kernels"].get("decode_events", {"ms": 0.0})["ms"], 3),
-        "merge_launches": cli_path["launches"]["decode_events"], "bench_launches": bench["launches"]["decode_events"],
+        "merge_launches": cli_path["launches"]["decode_events"],
         "gated_launches": gated["launches"]["decode_events"], "mesh_launches": mesh_path["launches"]["decode_events"],
         "mesh_ckpt_launches": mesh_path["ckpt_launches"]["decode_events"],
     })
@@ -2430,7 +2361,6 @@ def main() -> int:
             cli_path = timed("cli_path", phase_cli_path, torch, fa, graph, tmp, main_path["quality"])
             mesh_path = timed("mesh_path", phase_mesh_path, torch, fa, graph, main_path["report"], tmp)
             timed("cluster", phase_cluster, torch, tmp)
-            bench = timed("bench", phase_bench, torch)
             gated = timed("phase11", phase_gated_path, torch, fa)
             route = timed("phase12", phase_ckpt_route, torch, fa)
     except Exception as e:  # any failed phase fails the run, with its cause
@@ -2441,8 +2371,7 @@ def main() -> int:
         return 1
     say("total", wall_s=round(time.time() - t_start, 3))
     print(info["smi"])
-    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, bench, gated,
-                              route)))
+    print(json.dumps(receipts(kern, ckpt, main_path, long_tier, sc, sc_path, cli_path, mesh_path, gated, route)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

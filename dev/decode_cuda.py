@@ -26,8 +26,7 @@ from pangraph_tpu_torch.build.build import build  # noqa: E402
 from pangraph_tpu_torch.ops import stripe_v2 as sv  # noqa: E402
 from pangraph_tpu_torch.ops.batch_align import BatchAligner  # noqa: E402
 from port_bench import generators, harness  # noqa: E402
-
-HBM_BYTES_PER_S = 3.35e12
+from port_bench.yardstick import H100_HBM_BYTES_PER_S  # noqa: E402
 
 
 def main(seed: int) -> dict:
@@ -74,7 +73,7 @@ def main(seed: int) -> dict:
     out = {"device": torch.cuda.get_device_name(0), "seed": seed, "build_wall_s": round(wall, 3),
            "kernel_ms": {k: round(v, 3) for k, v in ms.items()}, "decode_by_tier": {}}
     for tier, t in sorted(tiers.items()):
-        bound = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        bound = 1e3 * t["bytes"] / H100_HBM_BYTES_PER_S
         out["decode_by_tier"][tier] = {**{k: int(v) for k, v in t.items() if k != "ms"}, "ms": round(t["ms"], 3),
                                        "bound_ms": round(bound, 4), "bound_share": round(bound / t["ms"], 4)}
     return out

@@ -228,8 +228,8 @@ def stripe_align_batch_native(
         return None
     n = len(refs)
     if n_threads <= 0:
-        # PANGRAPH_TPU_NATIVE_THREADS pins the DP worker count (bench uses
-        # =1 to measure a fully serial host baseline)
+        # PANGRAPH_TPU_NATIVE_THREADS pins the DP worker count (=1 gives a
+        # fully serial host baseline)
         n_threads = int(os.environ.get("PANGRAPH_TPU_NATIVE_THREADS", 0)) or os.cpu_count() or 1
     ref_len = np.array([len(r) for r in refs], dtype=np.int64)
     qry_len = np.array([len(q) for q in qrys], dtype=np.int64)

@@ -283,9 +283,9 @@ class BatchAligner:
     # band it widened, an event overflow whose event capacity it raised (a
     # job can have both)
     RETRIES = {"widened": 0, "k_bumped": 0}
-    # bytes the device legs copy off the card (every fetched array) and the
-    # part of them the host's decode reads (all of it: _fetch)
-    FETCH = {"bytes": 0, "used_bytes": 0}
+    # bytes the device legs copy off the card (every fetched array, all of
+    # which the host's decode reads: _fetch)
+    FETCH = {"bytes": 0}
     # problems of device launches whose Edit the card's decode gave, and
     # those that went to the host fallback
     DECODE = {"device": 0, "host": 0}
@@ -471,9 +471,9 @@ class BatchAligner:
                 cls.HOST_REASONS[reason] += cells
 
     @classmethod
-    def _fetch_count(cls, key: str, nbytes: int) -> None:
+    def _fetch_count(cls, nbytes: int) -> None:
         with cls._ENGINE_LOCK:
-            cls.FETCH[key] += nbytes
+            cls.FETCH["bytes"] += nbytes
 
     @classmethod
     def _decode_count(cls, device: int, host: int) -> None:
@@ -486,10 +486,10 @@ class BatchAligner:
         """Per-engine DP-cell totals and the device's share of the cells;
         the host engine's cells by reason (`host_reasons`, adding up to
         `host`, with "plan" split in `host_plan`) and the jobs retried by
-        cause; the bytes fetched off the card and the part the decode read; the
-        device launches' problems by where their events were decoded; device
-        cells per route, tier and shard; and the broker's combined rounds,
-        the legs they held and the most legs in one."""
+        cause; the bytes fetched off the card; the device launches' problems
+        by where their events were decoded; device cells per route, tier and
+        shard; and the broker's combined rounds, the legs they held and the
+        most legs in one."""
         with cls._ENGINE_LOCK:
             engines = dict(cls.ENGINE)
             reasons = dict(cls.HOST_REASONS)
@@ -546,13 +546,9 @@ class BatchAligner:
     @classmethod
     def reset_engine_stats(cls) -> None:
         with cls._ENGINE_LOCK:
-            for counts in (cls.ENGINE, cls.HOST_REASONS, cls.RETRIES):
+            for counts in (cls.ENGINE, cls.HOST_REASONS, cls.RETRIES, cls.FETCH, cls.DECODE):
                 for k in counts:
                     counts[k] = 0
-            for k in cls.FETCH:
-                cls.FETCH[k] = 0
-            for k in cls.DECODE:
-                cls.DECODE[k] = 0
             cls.STATS.clear()
             cls.SHARDS.clear()
             cls.GATE_LOG.clear()
@@ -1288,9 +1284,7 @@ class BatchAligner:
         n_sub, n_ev = totals.tolist()
         got = {"head": out["head"].cpu().numpy(), "totals": totals,
                **{k: out[k][:n].cpu().numpy() for k, n in (("sub_pos", n_sub), ("sub_alt", n_sub), ("evs", n_ev))}}
-        nbytes = sum(a.nbytes for a in got.values())
-        self._fetch_count("bytes", nbytes)
-        self._fetch_count("used_bytes", nbytes)
+        self._fetch_count(sum(a.nbytes for a in got.values()))
         return got
 
     def _decode(self, jobs: list, fetched: list, edits, boundary, overflow) -> None:

@@ -22,13 +22,15 @@ from pangraph_tpu.align.params import AlignmentArgs, BuildArgs
 from pangraph_tpu.build.build import build as ref_build
 from pangraph_tpu.build.build import make_find_matches as ref_find_matches
 from pangraph_tpu.build.merge import merge_graphs as ref_merge
+from pangraph_tpu.commands import graph_quality as ref_graph_quality
 from pangraph_tpu.graph.graph import Pangraph as RefPangraph
 from pangraph_tpu.io.fasta import FastaRecord, write_fasta
 from pangraph_tpu.ops.batch_align import TpuBatchAligner
-from pangraph_tpu.utils.synth import make_synthetic
+from pangraph_tpu.utils.synth import make_accessory_pangenome, make_synthetic
 from pangraph_tpu_torch.build.build import build as port_build
 from pangraph_tpu_torch.build.build import make_find_matches as port_find_matches
 from pangraph_tpu_torch.build.merge import merge_graphs as port_merge
+from pangraph_tpu_torch.commands import graph_quality as port_graph_quality
 from pangraph_tpu_torch.graph.graph import Pangraph as PortPangraph
 from pangraph_tpu_torch.io.fasta import FastaRecord as PortRecord
 from pangraph_tpu_torch.ops.batch_align import BatchAligner
@@ -105,6 +107,31 @@ def test_host_route_build_is_byte_equal():
     pargs = port_args(args)
     g_port = port_build(port_records(recs), pargs, aligner=port_aligner(pargs, None))
     assert graph_json(g_port) == graph_json(g_ref)
+
+
+# (records, circular) for graph_quality's parity: a mutation-only
+# pangenome, an accessory one (blocks of every depth) and the inversion set
+QUALITY_INPUTS = {
+    "synthetic": (lambda: make_synthetic(4, 40_000, seed=3), True),
+    "accessory": (lambda: make_accessory_pangenome(6, 60_000, seed=11), True),
+    "inversion": (lambda: genomes(np.random.default_rng(42)), False),
+}
+
+
+@pytest.mark.parametrize("name", list(QUALITY_INPUTS))
+def test_graph_quality_equals_the_reference(name):
+    """The port's graph_quality (the figures chip_smoke holds the headline
+    to) equals the reference's on graphs both packages build on the host
+    route."""
+    make, circular = QUALITY_INPUTS[name]
+    recs = make()
+    args = BuildArgs(circular=circular, jobs=2)
+    g_ref = ref_build(recs, args, aligner=ref_aligner(args, False))
+    pargs = port_args(args)
+    g_port = port_build(port_records(recs), pargs, aligner=port_aligner(pargs, None))
+    quality = port_graph_quality(g_port)
+    assert quality == ref_graph_quality(g_ref)
+    assert quality["input_bp"] == sum(len(r.seq) for r in recs) and quality["n_blocks"] > 0
 
 
 def test_merge_of_reference_subgraphs():
